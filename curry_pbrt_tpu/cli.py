@@ -13,7 +13,8 @@ import argparse
 
 def main(argv=None):
     ap = argparse.ArgumentParser(
-        prog="curry-pbrt-tpu", description="TPU-native pbrt-dialect path tracer"
+        prog="curry-pbrt-tpu",
+        description="pbrt-dialect path tracer on a GPU (JAX/Pallas)"
     )
     ap.add_argument("scene", help="pbrt scene file")
     ap.add_argument("-o", "--output", help="output PNG path (default: scene Film filename)")
@@ -47,7 +48,11 @@ def main(argv=None):
         overrides["clip"] = False
 
     from curry_pbrt_tpu.render import render_from_file
+    from curry_pbrt_tpu.utils.cache import enable_compile_cache
+    from curry_pbrt_tpu.utils.device import require_render_device
 
+    require_render_device()
+    enable_compile_cache()
     render_from_file(
         args.scene,
         output=args.output,

@@ -2,7 +2,7 @@
 
 Mirrors the reference's scalar definitions (/root/reference/src/def.rs:1-4):
 Float=f32, Integer=i32, MACHINE_EPSILON = f32 eps / 2. All device compute is
-f32; counters and ids are i32/u32 (TPU-native widths).
+f32; counters and ids are i32/u32 (the device's native widths).
 """
 
 import numpy as np

@@ -1,7 +1,7 @@
 """Wavefront integrators: MIS-NEE path tracing and direct lighting.
 
 The reference traces one ray at a time through a recursive loop
-(/root/reference/src/integrator/path.rs) with dynamic control flow. The TPU
+(/root/reference/src/integrator/path.rs) with dynamic control flow. This
 version holds the WHOLE ray batch in SoA arrays and runs a fixed-depth,
 fully-unrolled wavefront loop with active-lane masks:
 
@@ -295,7 +295,7 @@ def path_trace(
 
     The depth loop is a `lax.scan` over bounces — XLA compiles ONE bounce
     body (intersect + NEE + BSDF sample) instead of max_depth copies, which
-    cuts TPU compile time ~6×. The per-bounce Halton values use static dim
+    cuts compile time several-fold. The per-bounce Halton values use static dim
     indices, so they are precomputed for every bounce up front and fed to
     the scan as a stacked (max_depth, 8, N) input. Bounce-index-dependent
     behavior (bounce-0 emission, RR after bounce 3 — path.rs:21-29,47-56)
@@ -433,7 +433,7 @@ def direct_light_trace(
     delta lobes (direct_light.rs:12-42).
 
     The reference enumerates EVERY delta branch per ray (cheap per-ray on
-    CPU); on TPU each branch would be a full-batch trace, so glass at depth
+    CPU); on the device each branch would be a full-batch trace, so glass at depth
     d costs 2^d batch renders. Instead each lane stochastically follows ONE
     delta lobe, luminance-weighted through the same Distribution1D the
     reference's sample_delta_f uses (bxdf/mod.rs:160-175), reweighted by
@@ -447,7 +447,7 @@ def direct_light_trace(
         """Returns (radiance, segments): segments counts traced ray segments
         over useful lanes (closest-hit per live lane + NEE shadow/MIS pair
         per shaded lane) — same accounting as path_trace's, so bench.py's
-        rays/sec unit is uniform across integrators (VERDICT r3 item 8)."""
+        rays/sec unit is uniform across integrators."""
         N = o.shape[0]
         out = jnp.zeros((N, 3), Float)
         hit = ctx.intersect(o, d, jnp.where(live, FLOAT_MAX, 0.0))

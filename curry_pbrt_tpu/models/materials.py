@@ -6,7 +6,7 @@ compiles to a `CompiledMaterial` whose lobe STRUCTURE is static (decided from
 compile-time-constant parameters) and whose VALUES live in the differentiable
 params pytree. At shading time the integrator loops over the (small, deduped)
 list of material instances, builds each instance's lobes for the full ray
-batch, and masks lanes by material id — the TPU-native replacement for
+batch, and masks lanes by material id — the batched replacement for
 per-ray virtual dispatch; it vectorizes exactly because each instance's lobe
 list is known at trace time.
 
@@ -78,9 +78,8 @@ def eval_texref(ref: TexRef, uv, params, mat_id: int, slot: str, want_rgb: bool)
     h, w = img.shape[0], img.shape[1]
     x = jnp.clip((uv[..., 0] * w).astype(jnp.int32), 0, w - 1)
     y = jnp.clip(((1.0 - uv[..., 1]) * h).astype(jnp.int32), 0, h - 1)
-    # single row-gather from the flattened (H·W, 3) table (img[y, x] lowers
-    # to per-channel gathers on TPU; one fused 12-byte row gather is ~3×
-    # cheaper)
+    # single row-gather from the flattened (H·W, 3) table: one fused
+    # 12-byte row gather instead of per-channel gathers
     texel = jnp.take(img.reshape(-1, 3), y * w + x, axis=0)
     if want_rgb:
         return texel
@@ -243,7 +242,7 @@ class MaterialFamily:
     """Shading-dispatch group: material INSTANCES sharing (kind, lobe_plan,
     texture bindings, ref slots) evaluate as ONE vectorized lobe stack, with
     per-lane constants gathered from a stacked member-parameter table by each
-    lane's material id. This is the TPU answer to 'shading scales linearly in
+    lane's material id. This is the batched answer to 'shading scales linearly in
     distinct material instances' (the reference dispatches per-ray through
     trait objects — material/mod.rs:23-26 — so it never pays this): a scene
     with 50 matte instances shades in one pass, not 50.
@@ -259,19 +258,25 @@ class MaterialFamily:
     def member_ids(self) -> List[int]:
         return [mat.mat_id for mat in self.members]
 
+    def _member_pos(self, mat_ids):
+        """(N,) i32 — each lane's member position, -1 where not a member:
+        one lookup in a mat_id-indexed table, however many members."""
+        from curry_pbrt_tpu.ops.math import take_small
+
+        ids = self.member_ids
+        table = np.full((max(ids) + 1,), -1, np.int32)
+        table[ids] = np.arange(len(ids), dtype=np.int32)
+        inside = (mat_ids >= 0) & (mat_ids < table.shape[0])
+        safe = jnp.clip(mat_ids, 0, table.shape[0] - 1)
+        return jnp.where(inside, take_small(jnp.asarray(table), safe), -1)
+
     def mask(self, mat_ids):
         """(N,) bool — lanes shaded by any member."""
-        sel = mat_ids == self.members[0].mat_id
-        for mat in self.members[1:]:
-            sel = sel | (mat_ids == mat.mat_id)
-        return sel
+        return self._member_pos(mat_ids) >= 0
 
     def _local_idx(self, mat_ids):
         """(N,) i32 — each lane's member position (0 where not a member)."""
-        idx = jnp.zeros(mat_ids.shape, jnp.int32)
-        for j, mat in enumerate(self.members[1:], start=1):
-            idx = jnp.where(mat_ids == mat.mat_id, j, idx)
-        return idx
+        return jnp.maximum(self._member_pos(mat_ids), 0)
 
     def make_lobes(self, uv, params, registry, mat_ids) -> List[B.Lobe]:
         rep = self.rep
@@ -285,6 +290,9 @@ class MaterialFamily:
             ref = rep.refs[slot]
             if ref.kind == "texture":
                 return eval_texref(ref, uv, params, rep.mat_id, slot, want_rgb)
+            pre = params.get(FAMILY_TABLES, {}).get(self.table_key(slot, want_rgb))
+            if pre is not None:
+                return take_small(pre, local)
             vals = [params["materials"][str(mat.mat_id)][slot] for mat in self.members]
             if want_rgb:
                 stacked = jnp.stack(
@@ -300,6 +308,36 @@ class MaterialFamily:
             uv, params, registry,
             ev=(lambda s: ev(s, True), lambda s: ev(s, False)),
         )
+
+
+    def table_key(self, slot: str, want_rgb: bool) -> str:
+        return f"{self.rep.mat_id}/{slot}/{'rgb' if want_rgb else 'scalar'}"
+
+
+FAMILY_TABLES = "family_tables"
+
+
+def with_family_tables(families: List[MaterialFamily], params: dict) -> dict:
+    """params plus every multi-member family's stacked member constants,
+    stacked on the host from concrete params. Inside a jitted function the
+    same stack is one fusion with an operand per member, and XLA's compile
+    time grows steeply with that count (minutes at 8.5k materials, PERF.md).
+    For renders only: the stacked tables are constants, so no gradient
+    reaches params["materials"] through them."""
+    tables = {}
+    for fam in families:
+        if len(fam.members) == 1:
+            continue
+        for slot, ref in fam.rep.refs.items():
+            if ref.kind != "const":
+                continue
+            vals = [np.asarray(params["materials"][str(m.mat_id)][slot])
+                    for m in fam.members]
+            tables[fam.table_key(slot, True)] = np.stack(
+                [np.broadcast_to(v, (3,)) for v in vals])
+            tables[fam.table_key(slot, False)] = np.stack(
+                [v.reshape(-1)[0] for v in vals])
+    return dict(params, **{FAMILY_TABLES: tables}) if tables else params
 
 
 def family_key(mat: CompiledMaterial) -> tuple:

@@ -1,12 +1,14 @@
 """ctypes binding for the native C++ SAH BVH builder (native/bvh_builder.cpp).
 
-Builds the shared library on first use if a compiler is available; otherwise
-callers fall back to the numpy builder in ops/bvh.py.
+Builds the shared library (untracked, native/libbvh.so) from native/Makefile
+on first use if a compiler is available; otherwise callers fall back to the
+numpy builder in ops/bvh.py.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
 import subprocess
 from pathlib import Path
 from typing import Optional
@@ -23,11 +25,16 @@ def _load() -> Optional[ctypes.CDLL]:
     if _lib is not None:
         return _lib
     if not _LIB_PATH.exists():
+        # build under a private name and rename into place, so processes
+        # building at once never load a half-written library
+        tmp = _NATIVE_DIR / f".libbvh.{os.getpid()}.so"
         try:
             subprocess.run(
-                ["make", "-C", str(_NATIVE_DIR)], check=True, capture_output=True
+                ["make", "-C", str(_NATIVE_DIR), f"OUT={tmp.name}"],
+                check=True, capture_output=True,
             )
-        except Exception:
+            os.replace(tmp, _LIB_PATH)
+        except (OSError, subprocess.CalledProcessError):
             return None
     try:
         lib = ctypes.CDLL(str(_LIB_PATH))

@@ -2,7 +2,7 @@
 
 The reference averages each pixel's spp samples with a box filter inside
 16×16 tiles and merges under a mutex (/root/reference/src/film.rs:4-19,
-src/render.rs:19-45). On TPU, rays are laid out pixel-major — (pixels, spp)
+src/render.rs:19-45). Here rays are laid out pixel-major — (pixels, spp)
 — so accumulation is a pure reshape+masked-mean with no scatter and no
 locks, and per-device partial films combine with a `psum`.
 

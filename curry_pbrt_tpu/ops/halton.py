@@ -3,7 +3,7 @@
 The reference sampler is a mutable per-thread object: `set_pixel` solves a CRT
 to find the Halton index whose first two radical inverses land in the pixel,
 `next_sample` strides the index, and `get_sample` walks a dim counter
-(/root/reference/src/sampler/halton.rs). On TPU the same math becomes a pure
+(/root/reference/src/sampler/halton.rs). Here the same math becomes a pure
 function of (pixel, sample_index, dim):
 
     index(pixel, k) = pixel_offset[pixel] + k * (scale_x * scale_y)
@@ -17,9 +17,9 @@ Scrambling uses per-prime AFFINE digit permutations π(d) = (a·d + b) mod p
 with seeded a ∈ [1,p), b ∈ [0,p) — the Faure-Lemieux linear-scrambling
 family. The reference draws an arbitrary random permutation per prime
 (halton.rs:216-231); any seeded permutation family is an equally valid
-instance of the same estimator, and the affine form evaluates in ~5 VPU ops
-per digit instead of a base-wide one-hot table contraction (measured ~10-30×
-cheaper on TPU for the bounce dims, which dominate the sampler cost).
+instance of the same estimator, and the affine form evaluates in ~5
+elementwise ops per digit instead of a base-wide one-hot table contraction
+(the bounce dims dominate the sampler cost).
 
 `pixel_offset` is precomputed host-side with numpy (it is a pure function of
 the pixel grid), so the device only does the per-(ray, dim) digit loops —

@@ -1,8 +1,8 @@
 """Batched ray–primitive intersection.
 
 SoA geometry tables + dense ray×primitive tests. This is the oracle
-intersector and also the *fastest* path for small scenes on TPU: a dense
-(N rays × P prims) test is pure VPU math with zero gathers, while the
+intersector and also the fastest path for the smallest scenes: a dense
+(N rays × P prims) test is pure elementwise math with zero gathers, while the
 reference walks a recursive BVH per ray on CPU
 (/root/reference/src/aggregate/bvh.rs:151-190). Large scenes use ops/bvh.py.
 
@@ -11,7 +11,7 @@ conservative error rejection) exactly as the reference's
 geometry/shape/triangle.rs:194-262 (pbrt §3.9), vectorized over (ray, tri)
 pairs. Sphere test: object-space quadratic solved with the numerically
 stable perpendicular-decomposition form (the reference solves in f64 —
-sphere.rs:111-132; TPUs have no fast f64, the stable form avoids the
+sphere.rs:111-132; devices have no fast f64, the stable form avoids the
 cancellation instead).
 """
 
@@ -97,7 +97,7 @@ def empty_spheres() -> SphereArrays:
 def _argmax3(ad):
     """First-max index over the last (size-3) axis, via compares — a gather
     of axis size 3 across millions of lanes lowers to per-element dynamic
-    indexing on TPU (≈100× slower than these selects)."""
+    indexing (far slower than these selects)."""
     ax, ay, az = ad[..., 0], ad[..., 1], ad[..., 2]
     return jnp.where(
         (ax >= ay) & (ax >= az),
@@ -212,8 +212,8 @@ def triangle_intersect_t(o, d, t_max, tris: TriangleArrays, with_bary: bool = Tr
 def triangle_winner_attributes(o, d, t_max, tri_idx, tris: TriangleArrays):
     """Recompute the watertight test for each ray's WINNING triangle —
     O(N) instead of O(N·T·3) — and derive (p, n, uv, p_error) from the same
-    single vertex gather (at 10k-row tables each per-lane gather costs
-    ~2.4 ms/1M rays on TPU, so gathering the vertex tables once matters).
+    single vertex gather (each per-lane gather from a large table is
+    costly, so gathering the vertex tables once matters).
 
     Default uv chart is (0,0),(1,0),(1,1) — the reference's parsers never
     populate uvs (triangle.rs:69-77). p_error is the γ₇ barycentric bound
@@ -251,7 +251,7 @@ def sphere_quadratic(o_obj, d_obj, radius, t_max):
     """Solve |o + t d|² = r² with the reference's stable q-form
     (sphere.rs:111-132 does this in f64; here the small root is recovered as
     c/q so a ray spawned just OUTSIDE the sphere — c > 0 — can never produce
-    a spurious non-negative exit root, which TPU division/rsqrt rounding
+    a spurious non-negative exit root, which division/rsqrt rounding
     otherwise causes; the discriminant uses the geometric perpendicular
     distance, stable for grazing rays).
 
@@ -381,7 +381,7 @@ def intersect_brute(
         tt, _, tok = triangle_intersect_t(o, d, t_max, tris, with_bary=False)
         tri_best = jnp.argmin(tt, axis=-1).astype(jnp.int32)
         # winner extraction via one-hot reductions (take_along_axis on the
-        # minor axis is a per-element gather on TPU)
+        # minor axis is a per-element gather)
         oh_t = jnp.arange(tt.shape[1], dtype=jnp.int32)[None, :] == tri_best[:, None]
         tri_t = jnp.min(tt, axis=-1)
         tri_hit = jnp.any(tok & oh_t, axis=-1)

@@ -20,10 +20,9 @@ from curry_pbrt_tpu.dtypes import INV_PI, PI
 def take_small(table, idx, *, max_onehot: int = 256):
     """Row-gather `table[idx]` specialized for SMALL tables.
 
-    A per-lane dynamic gather serializes on the TPU VPU; for tables up to a
-    few hundred rows, a one-hot compare + masked sum is ~100× faster and
-    exact (selects never touch the values). Falls back to jnp.take above
-    `max_onehot` rows. idx must already be in-range (clip before calling).
+    For tables up to a few hundred rows a one-hot compare + masked sum
+    replaces the per-lane dynamic gather; it is exact (selects never touch
+    the values). Falls back to jnp.take above `max_onehot` rows. idx must already be in-range (clip before calling).
     Result shape: idx.shape + table.shape[1:].
     """
     K = table.shape[0]

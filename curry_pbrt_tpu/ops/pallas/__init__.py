@@ -1,8 +1,9 @@
-"""Pallas TPU kernels — the hand-scheduled tier under ops/.
+"""Pallas kernels (Triton on the GPU) — the hand-scheduled tier under ops/.
 
-Kernels here exist where XLA's default schedule leaves bandwidth on the
-table; everything has a pure-jnp reference implementation in ops/ that the
-tests compare against bit-for-bit (same math, same masking).
+Kernels here exist where XLA's own code measures slower end to end
+(PERF.md); everything has a pure-jnp reference implementation in ops/ that
+the tests compare against (same math, same masking: in interpret mode on
+the CPU, and within PERF.md's tolerances on the GPU).
 """
 
 from curry_pbrt_tpu.ops.pallas.intersect_kernel import (  # noqa: F401

@@ -1,26 +1,19 @@
 """Pallas-backed aggregate: hierarchical cluster-culled closest/any-hit.
 
 Drop-in replacement for the jnp brute intersector (ops/intersect.py) that
-scales from a Cornell box to 600k+ triangle scenes: triangles are
-Morton-sorted host-side into AABB-carrying clusters, clusters into
-super-clusters, super-clusters into VMEM-streamed slabs (see
-ops/pallas/intersect_kernel.py for the kernel-side three-level cull), with
-scene-adaptive block sizes, optional per-traversal ray reordering, and
-128-lane sub-group predication — every choice measured and documented in
-PERF.md. HBM traffic is O(N + T·n_ray_blocks) (the jnp dense path's O(N·T)
-intermediates get padded minor-dim 3 → 128 lanes by XLA — a 42× memory
-blowup).
+scales from a Cornell box to 600k+ triangle scenes: triangles are sorted
+host-side into AABB-carrying kd clusters, clusters into super-clusters and
+slabs (see ops/pallas/intersect_kernel.py for the in-kernel three-level
+cull). Memory traffic is O(N + T·n_ray_blocks): the jnp dense path
+materialises (rays × prims) intermediates instead.
 
-Spheres run through the jnp dense test below ~2 clusters' worth (reference
+Spheres run through the jnp dense test below SPH_KERNEL_MIN (reference
 scenes have ≤3) and through their own cluster-culled kernel
-(sphere_kernel.py, same hierarchy/machinery as the triangle kernel) beyond
-that. Hit attributes are reconstructed only for each ray's winning
-primitive.
+(sphere_kernel.py, the same traversal) beyond it. Hit attributes are
+reconstructed only for each ray's winning primitive.
 """
 
 from __future__ import annotations
-
-import os
 
 import numpy as np
 import jax
@@ -28,57 +21,28 @@ import jax.numpy as jnp
 
 from curry_pbrt_tpu.dtypes import FLOAT_MAX, Float
 from curry_pbrt_tpu.ops import intersect as isect
-from curry_pbrt_tpu.ops.pallas.intersect_kernel import (
-    build_tri_tables,
-    tri_any_hit_tables,
-    tri_closest_hit_tables,
-)
+from curry_pbrt_tpu.ops.pallas import intersect_kernel as ik
+
+SMALL_SCENE_TRIS = 512  # at most this many triangles: small clusters
+SMALL_BLOCK_T = 8
+SPH_KERNEL_MIN = 129  # spheres: the cluster kernel from this count on
 
 
 def plan_tri_kernel(tris: isect.TriangleArrays, view_origin=None):
-    """Scene-adaptive kernel parameters + host tables — the single source
-    of truth shared by the aggregate and the roofline/profiling tools.
-    Returns (tables, block_t, block_r, small)."""
+    """Scene-adaptive host tables for the triangle kernel."""
     # small scenes get 8-tri clusters so their handful of surfaces cull
-    # each other (a Cornell box inside one 64-tri cluster = zero culling)
-    # and wide 2048-ray blocks (their big surfaces can't cull anyway, so
-    # fewer per-block overheads win); big scenes keep 64-tri clusters.
-    # Big-scene block_r history: r3 measured 2048 ~2x slower than 1024 on
-    # the 10k mesh (pre dead-lane gate, pre kd clustering, no sub-groups).
-    # With kd cells + the gate + 256-lane sub-group predication the r5
-    # sweep reverses it: culling happens at sub-group granularity, so
-    # block_r only amortizes the per-block cluster sweep — wider wins, and
-    # the bigger the cluster table the wider the optimum (mesh10k: 2048
-    # best at 3.64 s, 4096 3.79 s; mesh100k: 4096 best at 9.08 s, 8192
-    # 9.28 s; mesh600k: 4096 best at 1.34 s, 2048 1.61 s).
-    # block_t: 8 (small) / 64 / 128 (huge): at 620k tris the 128-tri kd
-    # cells halve the cluster table and slab count and win 7.6%
-    # (1.331 -> 1.237 s, 2-run confirmed); at 100k tris 128 loses
-    # (9.58 -> 9.92 s) — the threshold splits those two points.
-    small = tris.count <= 512
-    block_t = 8 if small else (128 if tris.count > 256 * 1024 else 64)
-    block_r = 4096 if tris.count > 512 * 64 else 2048
-    if os.environ.get("CURRY_BLOCK_T"):  # sweep knob (PERF.md)
-        block_t = int(os.environ["CURRY_BLOCK_T"])
-    if os.environ.get("CURRY_BLOCK_R"):  # sweep knob (PERF.md)
-        block_r = int(os.environ["CURRY_BLOCK_R"])
-
-    # Morton sort + super-cluster grouping + front-to-back ordering +
-    # slab padding, all host-side (see build_tri_tables). Kernel-side
-    # indices are table-row order; the permuted TriangleArrays carries
-    # prim ids so Hit.prim needs no inverse mapping.
-    extra = {}
-    if os.environ.get("CURRY_SLAB_CLUSTERS"):  # sweep knob (PERF.md)
-        extra["clusters_per_slab"] = int(os.environ["CURRY_SLAB_CLUSTERS"])
-    if os.environ.get("CURRY_USE_SUPERS"):  # sweep knob: "0" / "1"
-        extra["use_supers"] = os.environ["CURRY_USE_SUPERS"] == "1"
-    if os.environ.get("CURRY_CLUSTER_MODE"):  # sweep knob: kdmedian/morton
-        extra["cluster_mode"] = os.environ["CURRY_CLUSTER_MODE"]
-    tables = build_tri_tables(
+    # each other (a Cornell box inside one big cluster = zero culling)
+    small = tris.count <= SMALL_SCENE_TRIS
+    block_t = SMALL_BLOCK_T if small else ik.BLOCK_T
+    # kd sort + super-cluster grouping + front-to-back ordering + slab
+    # padding, all host-side (see build_tri_tables). Kernel-side indices
+    # are table-column order; the permuted TriangleArrays carries prim ids
+    # so Hit.prim needs no inverse mapping.
+    tables = ik.build_tri_tables(
         tris.p0, tris.p1, tris.p2, tris.prim,
-        block_t=block_t, view_origin=view_origin, **extra,
+        block_t=block_t, view_origin=view_origin,
     )
-    return tables, block_t, block_r, small
+    return tables
 
 
 def make_pallas_intersectors(tris: isect.TriangleArrays, sph: isect.SphereArrays,
@@ -92,21 +56,16 @@ def make_pallas_intersectors(tris: isect.TriangleArrays, sph: isect.SphereArrays
     near-child-first traversal (bvh.rs:174-178). Scene-static, free at
     build; primary and shadow rays benefit most."""
     # "have" means VALID rows, not table rows: scenes keep 1 padding row in
-    # empty tables (compiler), and an all-invalid table must not reach the
-    # kernel (no work to do; also hedges a flaky TPU-worker fault observed
-    # with all-padding tiles)
+    # empty tables (compiler), and an all-invalid table has no work to do
     have_tris = bool((np.asarray(tris.prim) >= 0).any())
     have_sph = bool((np.asarray(sph.prim) >= 0).any())
     n_sph = int((np.asarray(sph.prim) >= 0).sum())
     # beyond a few clusters' worth, spheres go through their own
-    # cluster-culled kernel (sphere_kernel.py) instead of the dense
-    # O(rays × spheres) jnp test — the reference scales by putting spheres
-    # in its BVH like any primitive (aggregate/bvh.rs:24-124)
-    sph_kernel_min = int(os.environ.get("CURRY_SPH_KERNEL_MIN", 129))
-    use_sph_kernel = n_sph >= sph_kernel_min
-    # Mosaic only compiles on TPU; everywhere else (the 8-device CPU test
-    # platform) the kernel runs in interpret mode — same math, same results.
-    interp = jax.default_backend() != "tpu"
+    # cluster-culled kernel instead of the dense O(rays × spheres) jnp
+    # test — the reference scales by putting spheres in its BVH like any
+    # primitive (aggregate/bvh.rs:24-124)
+    use_sph_kernel = n_sph >= SPH_KERNEL_MIN
+    interp = ik.interpret_mode()
 
     if have_sph and use_sph_kernel:
         from curry_pbrt_tpu.ops.pallas.sphere_kernel import (
@@ -118,17 +77,13 @@ def make_pallas_intersectors(tris: isect.TriangleArrays, sph: isect.SphereArrays
         stab = build_sphere_tables(
             sph.w2o, sph.o2w, sph.radius, sph.prim, view_origin=view_origin
         )
-        s_sph16 = jnp.asarray(stab.sph16)
-        s_caabb = jnp.asarray(stab.cluster_aabbs)
-        s_saabb = jnp.asarray(stab.super_aabbs)
-        s_slab = jnp.asarray(stab.slab_aabbs)
+        s_args = tuple(jnp.asarray(a) for a in (
+            stab.sph_rows, stab.cluster_aabbs, stab.super_aabbs,
+            stab.slab_aabbs))
         s_rows = jnp.asarray(stab.row_sphere)
-        s_block_r = 4096 if n_sph > 512 * 64 else 2048
         s_kw = dict(
             block_s=stab.block_s, clusters_per_slab=stab.clusters_per_slab,
             use_supers=stab.use_supers, interpret=interp,
-            block_r=s_block_r,
-            subgroups=max(s_block_r // 256, 1) if n_sph >= 4096 else 1,
         )
 
     def _sph_closest(o, d, t_max):
@@ -136,11 +91,9 @@ def make_pallas_intersectors(tris: isect.TriangleArrays, sph: isect.SphereArrays
         dense argmin semantics (lowest index wins exact-t ties on the
         dense path; the kernel path's tie winner follows table order)."""
         if use_sph_kernel:
-            t, row = sphere_closest_hit_tables(
-                o, d, t_max, s_sph16, s_caabb, s_saabb, s_slab, **s_kw
-            )
-            best = jnp.take(s_rows, jnp.clip(row, 0, s_rows.shape[0] - 1))
-            return t, jnp.maximum(best, 0), row >= 0
+            t, col = sphere_closest_hit_tables(o, d, t_max, *s_args, **s_kw)
+            best = jnp.take(s_rows, jnp.clip(col, 0, s_rows.shape[0] - 1))
+            return t, jnp.maximum(best, 0), col >= 0
         st, sok = isect.sphere_intersect_t(o, d, t_max, sph)
         best = jnp.argmin(st, axis=-1).astype(jnp.int32)
         oh = jnp.arange(st.shape[1], dtype=jnp.int32)[None, :] == best[:, None]
@@ -148,119 +101,26 @@ def make_pallas_intersectors(tris: isect.TriangleArrays, sph: isect.SphereArrays
 
     def _sph_any(o, d, t_max):
         if use_sph_kernel:
-            return sphere_any_hit_tables(
-                o, d, t_max, s_sph16, s_caabb, s_saabb, s_slab, **s_kw
-            )
+            return sphere_any_hit_tables(o, d, t_max, *s_args, **s_kw)
         _st, sok = isect.sphere_intersect_t(o, d, t_max, sph)
         return jnp.any(sok, axis=-1)
 
-    # bound unconditionally so the tri closures below are safe no-ops on
-    # sphere-only scenes (every current call site is guarded by have_tris,
-    # but a future unguarded call should not NameError)
-    use_sort = False
-
     if have_tris:
-        tables, block_t, block_r, small = plan_tri_kernel(tris, view_origin)
+        tables = plan_tri_kernel(tris, view_origin)
         tris = isect.TriangleArrays(
             jnp.asarray(tables.p0), jnp.asarray(tables.p1),
             jnp.asarray(tables.p2), jnp.asarray(tables.prim),
         )
-        tris16 = jnp.asarray(tables.tris16)
-        caabb = jnp.asarray(tables.cluster_aabbs)
-        saabb = jnp.asarray(tables.super_aabbs)
-        slab_aabb = jnp.asarray(tables.slab_aabbs)
-        # 256-lane sub-group predication: incoherent ray blocks enter a
-        # cluster because of a handful of lanes; the other sub-groups skip
-        # the tile math (off for small scenes, where everything enters).
-        # Swept 128/256/512-lane groups on mesh10k/100k/600k — 256 wins
-        # everywhere (128 over-pays in per-group box recomputes): PERF.md r4
-        subgroups = 1 if small else max(block_r // 256, 1)
-        if os.environ.get("CURRY_SUBGROUPS"):  # sweep knob
-            subgroups = int(os.environ["CURRY_SUBGROUPS"])
+        t_args = tuple(jnp.asarray(a) for a in (
+            tables.tri_rows, tables.cluster_aabbs, tables.super_aabbs,
+            tables.slab_aabbs))
         kern_kw = dict(
-            block_t=block_t, clusters_per_slab=tables.clusters_per_slab,
-            use_supers=tables.use_supers, interpret=interp, block_r=block_r,
-            subgroups=subgroups,
+            block_t=tables.block_t, clusters_per_slab=tables.clusters_per_slab,
+            use_supers=tables.use_supers, interpret=interp,
         )
-
-        # Per-traversal ray reorder for large scenes: bounced rays are
-        # incoherent, so kernel ray-blocks stop skipping clusters after
-        # bounce ~2 (the mesh10k wall, PERF.md r3). Sorting rays by
-        # (origin Morton cell, direction octant) restores block coherence.
-        # r3 rejected this at 1M-ray chunks (28 ms sort + 27 ms/gather);
-        # at the 32k-ray Pallas chunks the same XLA ops cost ~0.06/0.08 ms
-        # (tools/probe_sort_cost.py) — ~0.4 ms/traversal all-in. Dead lanes
-        # (t_max 0) sort to the end so whole ray blocks of them skip
-        # everything.
-        # Scale-dependent default (measured, PERF.md r4): at mesh10k scale
-        # (155 clusters) sorting cost ~0.5 ms x 27 traversals/chunk and
-        # bought no extra culling (6.12 s unsorted vs 7.63 s sorted) — with
-        # dead-lane t_max masking in place the sweep is already short. At
-        # mesh100k (1600 clusters) the same sort wins 20% (21.9 s -> 18.3 s,
-        # octant-major best). Threshold 512 splits the two regimes.
-        sort_mode = os.environ.get("CURRY_SORT_MODE", "auto")  # sweep knob
-        if sort_mode == "auto":
-            sort_mode = (
-                "oct_cell" if tables.cluster_aabbs.shape[0] > 512 else "off"
-            )
-        use_sort = not small and sort_mode != "off"
-        if use_sort:
-            sb = tables.slab_aabbs
-            lo3 = jnp.asarray(np.nanmin(sb[:, 0:3], axis=0))
-            hi3 = np.nanmax(sb[:, 3:6], axis=0)
-            ext3 = jnp.asarray(
-                np.maximum(hi3 - np.nanmin(sb[:, 0:3], axis=0), 1e-6)
-            )
-
-    def _sort_key(o, d, t_max):
-        """(N,) u32: origin 8³ Morton cell (high bits) × direction octant
-        (low); dead lanes (t_max <= 0) last."""
-        # clip in FLOAT space before the uint cast: float->uint conversion
-        # of negative values is implementation-defined in XLA (0 on CPU,
-        # arbitrary on TPU), and origins outside the scene AABB are common
-        # (camera, escaped bounces) — a post-cast clip could land them in
-        # the wrong Morton cell and silently degrade sort coherence
-        q = jnp.clip((o - lo3) / ext3 * 8.0, 0.0, 7.0).astype(jnp.uint32)
-
-        def spread3(x):  # 3 bits → every 3rd bit
-            x = (x | (x << 4)) & jnp.uint32(0x0C3)
-            x = (x | (x << 2)) & jnp.uint32(0x249)
-            return x
-
-        cell = (spread3(q[:, 0]) << 2) | (spread3(q[:, 1]) << 1) | spread3(q[:, 2])
-        octant = (
-            (d[:, 0] < 0).astype(jnp.uint32) * 4
-            + (d[:, 1] < 0).astype(jnp.uint32) * 2
-            + (d[:, 2] < 0).astype(jnp.uint32)
-        )
-        if sort_mode == "cell_oct":
-            key = cell * 8 + octant
-        elif sort_mode == "oct_cell":
-            key = octant * 512 + cell
-        elif sort_mode == "cell":
-            key = cell
-        elif sort_mode == "oct":
-            key = octant
-        else:
-            raise ValueError(f"unknown CURRY_SORT_MODE {sort_mode!r}")
-        return jnp.where(t_max > 0, key, jnp.uint32(1 << 14))
-
-    def _sorted_rays(o, d, t_max):
-        perm = jnp.argsort(_sort_key(o, d, t_max))
-        inv = jnp.argsort(perm)
-        return o[perm], d[perm], t_max[perm], inv
 
     def _tri_closest(o, d, t_max):
-        if use_sort:
-            o_s, d_s, tm_s, inv = _sorted_rays(o, d, t_max)
-            t, idx = tri_closest_hit_tables(
-                o_s, d_s, tm_s, tris16, caabb, saabb, slab_aabb, **kern_kw
-            )
-            t, idx = t[inv], idx[inv]
-        else:
-            t, idx = tri_closest_hit_tables(
-                o, d, t_max, tris16, caabb, saabb, slab_aabb, **kern_kw
-            )
+        t, idx = ik.tri_closest_hit_tables(o, d, t_max, *t_args, **kern_kw)
         return t, idx, idx >= 0
 
     def intersect(o, d, t_max) -> isect.Hit:
@@ -315,16 +175,7 @@ def make_pallas_intersectors(tris: isect.TriangleArrays, sph: isect.SphereArrays
     def predicate(o, d, t_max):
         hit = jnp.zeros(o.shape[:1], bool)
         if have_tris:
-            if use_sort:
-                o_s, d_s, tm_s, inv = _sorted_rays(o, d, t_max)
-                h = tri_any_hit_tables(
-                    o_s, d_s, tm_s, tris16, caabb, saabb, slab_aabb, **kern_kw
-                )
-                hit = hit | h[inv]
-            else:
-                hit = hit | tri_any_hit_tables(
-                    o, d, t_max, tris16, caabb, saabb, slab_aabb, **kern_kw
-                )
+            hit = hit | ik.tri_any_hit_tables(o, d, t_max, *t_args, **kern_kw)
         if have_sph:
             hit = hit | _sph_any(o, d, t_max)
         return hit

@@ -1,58 +1,46 @@
-"""Pallas TPU kernel: hierarchical cluster-culled watertight ray–triangle
-intersection with a streamed triangle table.
+"""Pallas (Triton) kernel: hierarchical cluster-culled ray–primitive
+closest-hit and any-hit, written for a GPU's ray-block programs.
 
-Three-level cull hierarchy, TPU-native (no per-lane gathers, no divergent
-stacks — contrast the reference's recursive per-ray BVH,
+Culling hierarchy (contrast the reference's recursive per-ray BVH,
 aggregate/bvh.rs:151-190):
 
-  level 0  triangles are pre-sorted into Morton order so each BLOCK_T-sized
-           contiguous block is spatially tight; every block carries a
-           precomputed AABB ("cluster"). Before testing a cluster the
-           kernel slab-tests the BLOCK_R rays against its AABB with each
-           ray's CURRENT best t and skips the tile's triangle math with
-           @pl.when if no ray can enter. Block-level predication replaces
-           per-ray tree divergence: rays in a block are coherent
-           (pixel-major layout), so most clusters skip.
+  level 0  primitives are pre-sorted into blocked kd cells so each
+           block_t-sized contiguous run is spatially tight; every run
+           carries a precomputed AABB ("cluster"). Before testing a
+           cluster the program slab-tests its block_r rays against the
+           AABB with each ray's CURRENT best t and skips the tile math
+           (`lax.cond`) when no ray of the block can enter.
   level 1  SUPER_G consecutive clusters form a "super-cluster" with its own
-           AABB; one slab test skips all SUPER_G child clusters. Enabled
-           per scene (use_supers) — measured net-negative below ~100
-           clusters, a clear win beyond (the O(log n) analog of the
-           reference BVH's upper levels).
-  level 2  clusters are grouped into fixed-size SLABS that stream through
-           VMEM on the grid's inner axis — the tri table lives in HBM and
-           Pallas double-buffers one slab at a time, so scene size is
-           bounded by HBM, not VMEM (the reference renders any PLY that
-           fits RAM, plymesh.rs:49-131; the r3 kernel erred at 500k tris).
-           Each slab also carries an AABB tested once per grid step.
+           AABB; one slab test skips all SUPER_G children. Enabled beyond
+           USE_SUPERS_MIN clusters.
+  level 2  clusters are grouped into slabs of clusters_per_slab, each with
+           an AABB: the top of the hierarchy, tested once per slab.
 
-The grid is (n_ray_blocks, n_slabs) — the slab axis iterates fastest, so
-the per-ray-block best-t/idx output block stays VMEM-resident across a ray
-block's whole sweep (the standard Pallas accumulation pattern) and t
-tightens monotonically across slabs, supers, and clusters. Host-side,
-supers are ordered front-to-back from the camera and clusters front-to-back
-within each super (the cluster-level analog of the reference BVH's
-near-child-first traversal, bvh.rs:174-178), so early hits cull everything
-behind them.
+The grid covers ray blocks only. Each program owns block_r rays, walks
+slabs → supers → clusters in loops inside the kernel, keeps the best
+(t, idx) (or the any-hit flags) as loop-carried values, and writes them
+once at the end, so no state passes between programs and they may run in
+any order. Host-side, supers are ordered front-to-back from the camera and
+clusters front-to-back within each super (the cluster-level analog of the
+reference BVH's near-child-first traversal, bvh.rs:174-178), so early hits
+tighten t and cull what lies behind them. Any-hit programs stop as soon as
+every ray of the block has hit.
 
-The per-tile triangle math is the reference's watertight Möller test
+The per-tile triangle math is the reference's watertight test
 (translate–permute–shear + edge functions + conservative fp-error
-rejection, geometry/shape/triangle.rs:194-262 / pbrt §3.9) — identical to
-ops/intersect.py:watertight_core so equivalence tests can compare behavior
-on shared inputs.
+rejection, geometry/shape/triangle.rs:194-262 / pbrt §3.9), the same
+operations as ops/intersect.py:watertight_core. The sphere kernel
+(sphere_kernel.py) reuses the traversal with its own tile test.
 
-HBM traffic is O(N + T·n_ray_blocks) per pass (no (N,T) intermediates).
-
-Data layout (last dim = 128 lanes):
-  rays:  (16, N) f32 — rows 0-2 origin, 3-5 shear sx/sy/sz, 6 t_max,
-         7-9 one-hot permutation kx/ky/kz, 10-12 inv_d (slab test),
-         13-15 raw direction (sphere tile test). Rays on the LANE axis:
-         per-ray scalars broadcast as (1, BLOCK_R) rows.
-  tris:  (T, 16) f32 — cols 0-8 p0/p1/p2, 9 valid flag. Triangles on the
-         SUBLANE axis: per-tri scalars broadcast as (BLOCK_T, 1) columns.
-  cluster/super/slab AABBs: (rows, 8) f32 in SMEM — bmin xyz, bmax xyz
-         (empty boxes are NaN: every slab comparison with NaN is false, so
-         they can never be entered — an inverted box would act as a
-         phantom box under the min/max slab form).
+Data layout: every table is column-major — one row per attribute, one
+column per ray or primitive — so a program's loads are contiguous runs:
+  rays:  (RAY_ROWS, N_pad) f32 — rows 0-2 origin, 3-5 shear sx/sy/sz,
+         6 t_max, 7 dominant axis kz, 8-10 inv_d (slab test), 11-13 raw
+         direction (sphere tile test).
+  tris:  (TRI_ROWS, T_pad) f32 — rows 0-8 p0/p1/p2, 9 valid flag (±1).
+  cluster/super/slab AABBs: (rows, 8) f32 — bmin xyz, bmax xyz. Empty
+         boxes are NaN: every slab comparison with NaN is false, so they
+         are never entered.
 """
 
 from __future__ import annotations
@@ -65,7 +53,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pl_triton
 
 from curry_pbrt_tpu.dtypes import FLOAT_MAX, Float, gamma
 
@@ -74,71 +62,66 @@ _G3 = Float(gamma(3))
 _G5 = Float(gamma(5))
 _T_SCALE = Float(1.0 + 2.0 * gamma(3))  # conservative slab widening (bounds.rs:303-323)
 
-RAY_ROWS = 16
-TRI_COLS = 16
-BLOCK_R = 1024  # default rays per tile. Swept at the 32k-ray chunk size:
-# large scenes want 1024 (tighter ray blocks -> higher cluster-skip rates:
-# 2048 costs ~2x on the 10k mesh); small scenes, where the handful of big
-# surfaces can't cull anyway, want 2048 (fewer per-block overheads).
-BLOCK_T = 64  # default tris/cluster (swept 32/64/128 on the 10k mesh -> 64);
-# small scenes pass block_t=8 so even a Cornell box splits into cullable
-# clusters (one 64-tri cluster = zero culling)
+RAY_ROWS = 14
+TRI_ROWS = 10
+BLOCK_R = 32  # rays per program
+BLOCK_T = 32  # triangles per cluster
 SUPER_G = 8  # clusters per super-cluster (level-1 fan-out)
-SLAB_CLUSTERS = 256  # clusters per streamed slab: 16k tris/slab at
-# block_t=64 (1 MB VMEM double-buffered; 8 KB SMEM cluster table per slab)
-USE_SUPERS_MIN = 96  # enable the super-cluster level beyond this many
-# clusters (r3 measured an outer level net-negative on tiny scenes)
+SLAB_CLUSTERS = 256  # clusters per slab (level 2)
+USE_SUPERS_MIN = 96  # enable the super-cluster level beyond this many clusters
+NUM_WARPS = 4  # Triton launch shape of one program
+NUM_STAGES = 1
+
+
+def interpret_mode() -> bool:
+    """Whether Pallas kernels run in interpret mode on the current backend.
+
+    The CPU has no compiled Pallas route, so the kernels are interpreted
+    there (the test platform). On a GPU they compile through Triton. Any
+    other platform is refused rather than silently interpreted."""
+    backend = jax.default_backend()
+    if backend == "cpu":
+        return True
+    if backend == "gpu":
+        return False
+    raise RuntimeError(f"no compiled Pallas route for backend {backend!r}")
 
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def pack_rays(o, d, t_max, block_r: int = BLOCK_R) -> jnp.ndarray:
-    """(N,3),(N,3),(N,) → (16, N_pad) f32 with shear + inv_d precomputed.
+def _check_pow2(name: str, v: int) -> None:
+    if v < 1 or v & (v - 1):
+        raise ValueError(f"{name} must be a power of two (Triton block), got {v}")
 
-    Mirrors ops/intersect.py:ray_shear — kz = argmax |d| (permutation),
-    shear maps the ray to +z.
-    """
+
+def pack_rays(o, d, t_max, block_r: int = BLOCK_R) -> jnp.ndarray:
+    """(N,3),(N,3),(N,) → (RAY_ROWS, N_pad) f32 with shear + inv_d
+    precomputed; padding columns have t_max = 0 (never enter anything).
+
+    Mirrors ops/intersect.py:ray_shear — kz = argmax |d|, shear maps the
+    ray to +z."""
     from curry_pbrt_tpu.ops.intersect import ray_shear
 
     n = o.shape[0]
     kz, sx, sy, sz = ray_shear(d)
-    kx = (kz + 1) % 3
-    ky = (kx + 1) % 3
     inv_d = 1.0 / jnp.where(d == 0, Float(1e-30), d)
     rows = jnp.stack(
         [
             o[:, 0], o[:, 1], o[:, 2],
             sx, sy, sz,
             t_max,
-            kx.astype(Float), ky.astype(Float), kz.astype(Float),
+            kz.astype(Float),
             inv_d[:, 0], inv_d[:, 1], inv_d[:, 2],
-            # rows 13-15: raw direction (the sphere tile test needs d itself;
-            # 1/(1/d) does not round-trip bit-exactly)
+            # raw direction (the sphere tile test needs d itself; 1/(1/d)
+            # does not round-trip bit-exactly)
             d[:, 0], d[:, 1], d[:, 2],
         ],
         axis=0,
     )
-    rows = jnp.concatenate(
-        [rows, jnp.zeros((RAY_ROWS - rows.shape[0], n), Float)], axis=0
-    )
     n_pad = _round_up(max(n, 1), block_r)
     return jnp.pad(rows, ((0, 0), (0, n_pad - n)))
-
-
-def pack_tris(p0, p1, p2, valid, block_t: int = BLOCK_T) -> jnp.ndarray:
-    """(T,3)×3 + (T,) bool → (T_pad, 16) f32."""
-    t = p0.shape[0]
-    cols = jnp.concatenate(
-        [p0, p1, p2, jnp.where(valid, 1.0, -1.0)[:, None].astype(Float)], axis=-1
-    )
-    cols = jnp.concatenate(
-        [cols, jnp.zeros((t, TRI_COLS - cols.shape[1]), Float)], axis=-1
-    )
-    t_pad = _round_up(max(t, 1), block_t)
-    pad = jnp.zeros((t_pad - t, TRI_COLS), Float).at[:, 9].set(-1.0)
-    return jnp.concatenate([cols, pad], axis=0)
 
 
 def block_aabbs(p0, p1, p2, valid, block_t: int = BLOCK_T) -> np.ndarray:
@@ -183,12 +166,10 @@ def kdmedian_order(p0, p1, p2, block_t: int) -> np.ndarray:
     triangle set on the widest centroid axis at the nearest multiple of
     block_t to the median, so every contiguous block_t run is one kd cell.
 
-    Cells are compact axis-aligned regions — markedly tighter cluster AABBs
-    than same-size Morton runs (a Z-curve block can straddle curve jumps),
-    measured ~25-40% fewer entered tiles on the mesh scenes
-    (tools/probe_granularity.py --cluster-mode). Exact block_t fills keep
-    the tile math fully utilized (an SAH-treelet cut would leave padding
-    rows). Deterministic (stable sorts)."""
+    Cells are compact axis-aligned regions — tighter cluster AABBs than
+    same-size Morton runs (a Z-curve block can straddle curve jumps). Exact
+    block_t fills keep the tile math fully used. Deterministic (stable
+    sorts)."""
     c = ((np.asarray(p0, np.float64) + np.asarray(p1) + np.asarray(p2)) / 3.0)
     n = c.shape[0]
     order = np.arange(n)
@@ -211,8 +192,8 @@ def kdmedian_order(p0, p1, p2, block_t: int) -> np.ndarray:
 
 
 def morton_order(p0, p1, p2) -> np.ndarray:
-    """Host-side Morton (Z-curve) permutation of triangle centroids so
-    contiguous BLOCK_T blocks are spatially tight clusters."""
+    """Host-side Morton (Z-curve) permutation of triangle centroids (the
+    baseline kdmedian_order is measured against)."""
     c = (np.asarray(p0, np.float64) + np.asarray(p1) + np.asarray(p2)) / 3.0
     lo, hi = c.min(axis=0), c.max(axis=0)
     ext = np.where(hi - lo > 0, hi - lo, 1.0)
@@ -231,7 +212,7 @@ def morton_order(p0, p1, p2) -> np.ndarray:
 
 @dataclasses.dataclass
 class TriTables:
-    """Host-built (numpy) kernel tables: Morton-ordered, front-to-back
+    """Host-built (numpy) kernel tables: kd-ordered, front-to-back
     super/cluster permuted, padded to whole slabs."""
 
     p0: np.ndarray  # (T_pad, 3) final kernel row order
@@ -239,7 +220,7 @@ class TriTables:
     p2: np.ndarray
     prim: np.ndarray  # (T_pad,) i32, -1 = padding
     valid: np.ndarray  # (T_pad,) bool
-    tris16: np.ndarray  # (T_pad, 16) packed kernel layout
+    tri_rows: np.ndarray  # (TRI_ROWS, T_pad) packed kernel layout
     cluster_aabbs: np.ndarray  # (C, 8)
     super_aabbs: np.ndarray  # (C // SUPER_G, 8)
     slab_aabbs: np.ndarray  # (n_slabs, 8)
@@ -252,14 +233,64 @@ class TriTables:
         return self.slab_aabbs.shape[0]
 
 
-def _pack_tris_np(p0, p1, p2, valid) -> np.ndarray:
-    t = p0.shape[0]
-    out = np.zeros((t, TRI_COLS), np.float32)
-    out[:, 0:3] = p0
-    out[:, 3:6] = p1
-    out[:, 6:9] = p2
-    out[:, 9] = np.where(valid, 1.0, -1.0)
+def pack_tris(p0, p1, p2, valid) -> np.ndarray:
+    """(T,3)×3 + (T,) bool → (TRI_ROWS, T) f32 column-major table."""
+    t = np.asarray(p0).shape[0]
+    out = np.zeros((TRI_ROWS, t), np.float32)
+    out[0:3] = np.asarray(p0, np.float32).T
+    out[3:6] = np.asarray(p1, np.float32).T
+    out[6:9] = np.asarray(p2, np.float32).T
+    out[9] = np.where(np.asarray(valid, bool), 1.0, -1.0)
     return out
+
+
+def hierarchy_shape(n_items: int, block: int, clusters_per_slab: int,
+                    use_supers=None):
+    """(n_clusters, clusters_per_slab, n_slabs, use_supers) for n_items
+    primitives in clusters of `block`: supers and multi-slab layouts pad
+    the cluster count to whole SUPER_G groups and whole slabs; a scene of
+    one slab without supers keeps its exact cluster count."""
+    nc_raw = -(-max(n_items, 1) // block)
+    if use_supers is None:
+        use_supers = nc_raw > USE_SUPERS_MIN
+    use_supers = bool(use_supers)
+    if use_supers or nc_raw > clusters_per_slab:
+        nc = _round_up(nc_raw, SUPER_G)
+        cps = int(min(clusters_per_slab, nc))
+        if cps % SUPER_G:
+            raise ValueError(f"clusters_per_slab must be a multiple of {SUPER_G}")
+        n_slabs = -(-nc // cps)
+        nc = n_slabs * cps
+    else:
+        nc, cps, n_slabs = nc_raw, nc_raw, 1
+    return nc, cps, n_slabs, use_supers and cps > SUPER_G
+
+
+def front_to_back(caabb: np.ndarray, view_origin) -> np.ndarray:
+    """Cluster permutation: supers front-to-back from view_origin, then
+    clusters within each super (padding clusters last)."""
+    nc = caabb.shape[0]
+    vo = np.asarray(view_origin, np.float64)
+    ccent = (caabb[:, 0:3].astype(np.float64) + caabb[:, 3:6]) * 0.5
+    cdist = np.linalg.norm(ccent - vo, axis=-1)
+    cdist = np.where(np.isnan(cdist), np.inf, cdist)
+    if nc % SUPER_G:
+        return np.argsort(cdist, kind="stable")
+    ns = nc // SUPER_G
+    sdist = cdist.reshape(ns, SUPER_G).min(axis=1)
+    sorder = np.argsort(sdist, kind="stable")
+    within = np.argsort(cdist.reshape(ns, SUPER_G), axis=1, kind="stable")
+    return (sorder[:, None] * SUPER_G + within[sorder]).reshape(-1)
+
+
+def level_aabbs(caabb: np.ndarray, cps: int, n_slabs: int, use_supers: bool):
+    """(super AABBs, slab AABBs) from cluster AABBs in final order. Without
+    supers the super table is a (1, 8) placeholder the kernel never reads."""
+    if use_supers:
+        saabb = union_boxes(caabb.reshape(-1, SUPER_G, 8))
+    else:
+        saabb = union_boxes(caabb[None, :, :])
+    return saabb, union_boxes(caabb.reshape(n_slabs, cps, 8))
 
 
 def build_tri_tables(
@@ -268,43 +299,24 @@ def build_tri_tables(
     view_origin=None,
     clusters_per_slab: int = SLAB_CLUSTERS,
     use_supers=None,
-    cluster_mode: str = "kdmedian",
 ) -> TriTables:
-    """Spatially sort triangles (cluster_mode: "kdmedian" blocked kd cells,
-    the default — or "morton" Z-curve runs), group block_t rows into
-    clusters and SUPER_G clusters into supers, order supers (and clusters
-    within supers) front-to-back from view_origin, pad to whole slabs, and
-    precompute every AABB level + the packed (T,16) table. Deterministic."""
+    """Spatially sort triangles into blocked kd cells, group block_t rows
+    into clusters and SUPER_G clusters into supers, order supers (and
+    clusters within supers) front-to-back from view_origin, pad to whole
+    slabs, and precompute every AABB level + the packed table.
+    Deterministic."""
+    _check_pow2("block_t", block_t)
     p0 = np.asarray(p0, np.float32)
     p1 = np.asarray(p1, np.float32)
     p2 = np.asarray(p2, np.float32)
     prim = np.asarray(prim, np.int32)
 
-    if cluster_mode == "kdmedian":
-        order = kdmedian_order(p0, p1, p2, block_t)
-    elif cluster_mode == "morton":
-        order = morton_order(p0, p1, p2)
-    else:
-        raise ValueError(f"unknown cluster_mode {cluster_mode!r}")
+    order = kdmedian_order(p0, p1, p2, block_t)
     p0, p1, p2, prim = p0[order], p1[order], p2[order], prim[order]
 
     t = p0.shape[0]
-    nc_raw = -(-max(t, 1) // block_t)
-    if use_supers is None:
-        use_supers = nc_raw > USE_SUPERS_MIN
-    use_supers = bool(use_supers)
-    if use_supers or nc_raw > clusters_per_slab:
-        # super grouping / multi-slab SMEM blocking need SUPER_G alignment
-        nc = _round_up(nc_raw, SUPER_G)
-        cps = int(min(clusters_per_slab, nc))
-        if cps % SUPER_G:
-            raise ValueError(f"clusters_per_slab must be a multiple of {SUPER_G}")
-        n_slabs = -(-nc // cps)
-        nc = n_slabs * cps
-    else:
-        # tiny scene: exact cluster count — padding clusters would lengthen
-        # every sweep (measured ~6% on the Cornell headline)
-        nc, cps, n_slabs = nc_raw, nc_raw, 1
+    nc, cps, n_slabs, use_supers = hierarchy_shape(
+        t, block_t, clusters_per_slab, use_supers)
     t_pad = nc * block_t
     if t_pad > t:
         z = np.zeros((t_pad - t, 3), np.float32)
@@ -313,119 +325,73 @@ def build_tri_tables(
     valid = prim >= 0
 
     caabb = block_aabbs(p0, p1, p2, valid, block_t)
-    ns = nc // SUPER_G
-
     if view_origin is not None:
-        vo = np.asarray(view_origin, np.float64)
-        ccent = (caabb[:, 0:3].astype(np.float64) + caabb[:, 3:6]) * 0.5
-        cdist = np.linalg.norm(ccent - vo, axis=-1)
-        cdist = np.where(np.isnan(cdist), np.inf, cdist)  # padding → last
-        if nc % SUPER_G == 0:
-            # order supers front-to-back, then clusters within each super
-            sdist = cdist.reshape(ns, SUPER_G).min(axis=1)
-            sorder = np.argsort(sdist, kind="stable")
-            within = np.argsort(cdist.reshape(ns, SUPER_G), axis=1, kind="stable")
-            cluster_order = (
-                sorder[:, None] * SUPER_G + within[sorder]
-            ).reshape(-1)
-        else:
-            cluster_order = np.argsort(cdist, kind="stable")
+        cluster_order = front_to_back(caabb, view_origin)
         row_order = (
             cluster_order[:, None] * block_t + np.arange(block_t)[None, :]
         ).reshape(-1)
         p0, p1, p2 = p0[row_order], p1[row_order], p2[row_order]
         prim, valid = prim[row_order], valid[row_order]
         caabb = caabb[cluster_order]
-
-    use_supers = use_supers and cps > SUPER_G
-    if use_supers:
-        saabb = union_boxes(caabb.reshape(ns, SUPER_G, 8))
-    else:  # unread by the kernel; keep a valid (1, 8) placeholder
-        saabb = union_boxes(caabb[None, :, :])
-    slab_aabb = union_boxes(caabb.reshape(n_slabs, cps, 8))
+    saabb, slab_aabb = level_aabbs(caabb, cps, n_slabs, use_supers)
 
     return TriTables(
         p0=p0, p1=p1, p2=p2, prim=prim, valid=valid,
-        tris16=_pack_tris_np(p0, p1, p2, valid),
+        tri_rows=pack_tris(p0, p1, p2, valid),
         cluster_aabbs=caabb, super_aabbs=saabb, slab_aabbs=slab_aabb,
         block_t=block_t, clusters_per_slab=cps, use_supers=use_supers,
     )
 
 
-def _box_enter(aabb_ref, row, rays_ref, t_best, lane_ds=None):
-    """Slab test of the ray block (or a 128-aligned lane sub-group) vs AABB
-    table row `row` → (1, lanes) bool. Conservative (1+2γ₃) widening as in
-    bounds.rs:303-323."""
-    ls = slice(None) if lane_ds is None else lane_ds
-    ox = rays_ref[0:1, ls]
-    oy = rays_ref[1:2, ls]
-    oz = rays_ref[2:3, ls]
-    ix = rays_ref[10:11, ls]
-    iy = rays_ref[11:12, ls]
-    iz = rays_ref[12:13, ls]
-    bmin_x = aabb_ref[row, 0]
-    bmin_y = aabb_ref[row, 1]
-    bmin_z = aabb_ref[row, 2]
-    bmax_x = aabb_ref[row, 3]
-    bmax_y = aabb_ref[row, 4]
-    bmax_z = aabb_ref[row, 5]
+def _any(mask):
+    """Scalar 'any lane set' (Triton has no boolean reduction)."""
+    return jnp.max(mask.astype(jnp.int32)) > 0
 
-    def slab(blo, bhi, o, inv):
-        t0 = (blo - o) * inv
-        t1 = (bhi - o) * inv
+
+def _box_enter(aabb_ref, row, ray, t_best):
+    """Slab test of the program's rays vs AABB table row `row` → (block_r,)
+    bool. Conservative (1+2γ₃) widening as in bounds.rs:303-323."""
+
+    def slab(k):
+        t0 = (aabb_ref[row, k] - ray[k]) * ray[8 + k]
+        t1 = (aabb_ref[row, 3 + k] - ray[k]) * ray[8 + k]
         return jnp.minimum(t0, t1), jnp.maximum(t0, t1) * _T_SCALE
 
-    nx, fx = slab(bmin_x, bmax_x, ox, ix)
-    ny, fy = slab(bmin_y, bmax_y, oy, iy)
-    nz, fz = slab(bmin_z, bmax_z, oz, iz)
+    nx, fx = slab(0)
+    ny, fy = slab(1)
+    nz, fz = slab(2)
     tn = jnp.maximum(nx, jnp.maximum(ny, nz))
     tf = jnp.minimum(fx, jnp.minimum(fy, fz))
     # `t_best > 0` is the dead-lane gate: integrators pass t_max=0 for lanes
     # whose result is discarded, but a stale origin sitting ON its last hit
     # is inside that cluster's AABB (tn < 0 < tf), so without this check the
-    # lane still enters and triggers tile tests it can never win (t_best=0
-    # blocks any hit) — the check makes the skip unconditional.
+    # lane still enters and triggers tile tests it can never win.
     return (tn <= tf) & (tn < t_best) & (tf > 0.0) & (t_best > 0.0)
 
 
-def _tile_test(rays_ref, tris_ref, t_best, lane_ds=None):
-    """Watertight test on one (BLOCK_T, lanes) tile against per-ray
-    current-best t. lane_ds (a pl.ds) restricts to a 128-aligned lane
-    sub-group. Returns (t, ok): t is FLOAT_MAX where no hit."""
-    ls = slice(None) if lane_ds is None else lane_ds
-    ox = rays_ref[0:1, ls]
-    oy = rays_ref[1:2, ls]
-    oz = rays_ref[2:3, ls]
-    sx = rays_ref[3:4, ls]
-    sy = rays_ref[4:5, ls]
-    sz = rays_ref[5:6, ls]
-    kxf = rays_ref[7:8, ls]
-    kyf = rays_ref[8:9, ls]
-    kzf = rays_ref[9:10, ls]
-
-    # one-hot permutation masks, shape (1, BLOCK_R)
-    mx0 = (kxf == 0.0).astype(Float); mx1 = (kxf == 1.0).astype(Float); mx2 = (kxf == 2.0).astype(Float)
-    my0 = (kyf == 0.0).astype(Float); my1 = (kyf == 1.0).astype(Float); my2 = (kyf == 2.0).astype(Float)
-    mz0 = (kzf == 0.0).astype(Float); mz1 = (kzf == 1.0).astype(Float); mz2 = (kzf == 2.0).astype(Float)
+def _tri_tile_test(ray, prims, t_best):
+    """Watertight test of one (block_t, block_r) tile: prims are the
+    cluster's TRI_ROWS columns as (block_t, 1), ray rows (1, block_r),
+    t_best (1, block_r). Returns (t, ok): t is FLOAT_MAX where no hit."""
+    ox, oy, oz = ray[0], ray[1], ray[2]
+    sx, sy, sz = ray[3], ray[4], ray[5]
+    kz = ray[7]
 
     def permuted(px, py, pz):
-        """Translate by -o then permute per-ray: (BLOCK_T,1)·(1,BLOCK_R)."""
-        tx = px - ox  # (BLOCK_T, BLOCK_R)
+        """Translate by -o, then (v[kx], v[ky], v[kz]) with kx=(kz+1)%3,
+        ky=(kz+2)%3 — ops/intersect.py:permute_by_kz."""
+        tx = px - ox
         ty = py - oy
         tz = pz - oz
-        qx = mx0 * tx + mx1 * ty + mx2 * tz
-        qy = my0 * tx + my1 * ty + my2 * tz
-        qz = mz0 * tx + mz1 * ty + mz2 * tz
+        qx = jnp.where(kz == 0.0, ty, jnp.where(kz == 1.0, tz, tx))
+        qy = jnp.where(kz == 0.0, tz, jnp.where(kz == 1.0, tx, ty))
+        qz = jnp.where(kz == 0.0, tx, jnp.where(kz == 1.0, ty, tz))
         return qx, qy, qz
 
-    p0x = tris_ref[:, 0:1]; p0y = tris_ref[:, 1:2]; p0z = tris_ref[:, 2:3]
-    p1x = tris_ref[:, 3:4]; p1y = tris_ref[:, 4:5]; p1z = tris_ref[:, 5:6]
-    p2x = tris_ref[:, 6:7]; p2y = tris_ref[:, 7:8]; p2z = tris_ref[:, 8:9]
-    valid = tris_ref[:, 9:10] > 0.0
-
-    q0x, q0y, q0z = permuted(p0x, p0y, p0z)
-    q1x, q1y, q1z = permuted(p1x, p1y, p1z)
-    q2x, q2y, q2z = permuted(p2x, p2y, p2z)
+    q0x, q0y, q0z = permuted(prims[0], prims[1], prims[2])
+    q1x, q1y, q1z = permuted(prims[3], prims[4], prims[5])
+    q2x, q2y, q2z = permuted(prims[6], prims[7], prims[8])
+    valid = prims[9] > 0.0
 
     x0 = q0x + sx * q0z; y0 = q0y + sy * q0z
     x1 = q1x + sx * q1z; y1 = q1y + sy * q1z
@@ -438,8 +404,6 @@ def _tile_test(rays_ref, tris_ref, t_best, lane_ds=None):
     det = e0 + e1 + e2
     z0 = q0z * sz; z1 = q1z * sz; z2 = q2z * sz
     t_scaled = e0 * z0 + e1 * z1 + e2 * z2
-    # (Mosaic can't select between i1 vectors, so this is the logical
-    # expansion of the reference's det-sign branch.)
     neg_det = det < 0
     in_range = (neg_det & (t_scaled < 0) & (t_scaled >= t_best * det)) | (
         ~neg_det & (t_scaled > 0) & (t_scaled <= t_best * det)
@@ -467,345 +431,233 @@ def _tile_test(rays_ref, tris_ref, t_best, lane_ds=None):
     return jnp.where(ok, t, FLOAT_MAX), ok
 
 
-def _make_closest_kernel(block_t: int, clusters_per_slab: int,
-                         use_supers: bool, stats: bool, n_slabs: int,
-                         subgroups: int, tile_test=None):
-    """One ray block vs one streamed primitive slab per grid step. The best
-    (t, idx) output block persists across the slab sweep (inner grid axis).
-    With stats=True an extra output counts entered clusters per ray block
-    (roofline instrumentation). The slab-level AABB test only exists when
-    there are ≥2 slabs (with one slab it can never skip anything).
+@dataclasses.dataclass(frozen=True)
+class Traversal:
+    """Static shape of one cluster traversal kernel."""
 
-    tile_test(rays_ref, tile, t_best, lane_ds) -> (t, ok) is the per-pair
-    primitive test — watertight triangles by default; the sphere cluster
-    kernel (sphere_kernel.py) passes its quadratic test instead."""
-    if tile_test is None:
-        tile_test = _tile_test
+    tile_test: object  # (ray rows, prim columns, t_best) -> (t, ok)
+    n_rows: int  # rows of the primitive table
+    block_t: int  # primitives per cluster
+    clusters_per_slab: int
+    n_slabs: int
+    use_supers: bool
+    block_r: int = BLOCK_R
+    num_warps: int = NUM_WARPS
+    num_stages: int = NUM_STAGES
 
-    def kernel(slab_aabb_ref, super_aabb_ref, caabb_ref, rays_ref, tris_ref,
-               t_ref, idx_ref, *maybe_stats):
-        j = pl.program_id(1)
 
-        @pl.when(j == 0)
-        def _():
-            t_ref[:] = rays_ref[6:7, :]  # per-ray t_max
-            idx_ref[:] = jnp.full_like(idx_ref, -1)
-            if stats:
-                maybe_stats[0][:, :] = jnp.zeros_like(maybe_stats[0])
+def _make_kernel(tr: Traversal, any_hit: bool, stats: bool):
+    """Kernel over one ray block: slabs → supers → clusters, each level a
+    loop inside the program gated by its AABB test; a cluster's tile math
+    runs only when some ray of the block enters it. Any-hit loops stop once
+    every ray of the block has hit.
 
-        def _test_lanes(c, tri_tile, lane_ds):
-            """Tile-test one 128-aligned lane group against cluster c and
-            fold (t, idx) improvements into the output refs."""
-            ls = slice(None) if lane_ds is None else lane_ds
-            t_best = t_ref[0:1, ls]
-            t, _ok = tile_test(rays_ref, tri_tile, t_best, lane_ds)
-            t_min = jnp.min(t, axis=0, keepdims=True)
-            row = jnp.argmin(t, axis=0).astype(jnp.int32)[None, :]
-            tri_idx = (j * clusters_per_slab + c) * block_t + row
+    With stats=True (closest-hit only) two more outputs count, per ray,
+    the cluster tiles its block executed (entered) and those that improved
+    some ray's best t (improved)."""
+    bt, br, cps = tr.block_t, tr.block_r, tr.clusters_per_slab
+    n_super = cps // SUPER_G
 
-            # strict improvement, EXCEPT the first hit may land exactly
-            # at the incoming t_max (the brute path's watertight
-            # in_range accepts t <= t_max; best-t init = t_max would
-            # report it as a miss). FLOAT_MAX guard keeps no-hit tiles
+    def kernel(slab_ref, super_ref, caabb_ref, rays_ref, prims_ref, *out_refs):
+        rs = pl.ds(pl.multiple_of(pl.program_id(0) * br, br), br)
+        ray = [rays_ref[k, rs] for k in range(RAY_ROWS)]
+        t_max = ray[6]
+        ray2 = [r[None, :] for r in ray]
+
+        def live(carry):
+            """Rays still looking: the any-hit flags not yet set."""
+            return carry[0] == 0
+
+        def enters(aabb_ref, row, carry):
+            if any_hit:
+                return _box_enter(aabb_ref, row, ray, t_max) & live(carry)
+            return _box_enter(aabb_ref, row, ray, carry[0])
+
+        def loop(n, body, carry):
+            if not any_hit:
+                return jax.lax.fori_loop(0, n, body, carry)
+
+            def cond(state):
+                return (state[0] < n) & _any(live(state[1]))
+
+            def step(state):
+                return state[0] + 1, body(state[0], state[1])
+
+            return jax.lax.while_loop(cond, step, (jnp.int32(0), carry))[1]
+
+        def tile(c, carry):
+            off = pl.multiple_of(c * bt, bt)
+            prims = [prims_ref[k, pl.ds(off, bt)][:, None] for k in range(tr.n_rows)]
+            if any_hit:
+                _t, ok = tr.tile_test(ray2, prims, t_max[None, :])
+                return (jnp.maximum(carry[0], jnp.max(ok.astype(jnp.int32), axis=0)),)
+            t_best, idx = carry[0], carry[1]
+            t, _ok = tr.tile_test(ray2, prims, t_best[None, :])
+            t_min = jnp.min(t, axis=0)
+            row = jnp.argmin(t, axis=0).astype(jnp.int32)
+            # strict improvement, EXCEPT the first hit may land exactly at
+            # the incoming t_max (the brute path's watertight in_range
+            # accepts t <= t_max). The FLOAT_MAX guard keeps no-hit tiles
             # from writing a phantom index.
             better = (t_min < t_best) | (
-                (t_min == t_best) & (idx_ref[0:1, ls] < 0) & (t_min < FLOAT_MAX)
+                (t_min == t_best) & (idx < 0) & (t_min < FLOAT_MAX)
             )
-            t_ref[0:1, ls] = jnp.where(better, t_min, t_best)
-            idx_ref[0:1, ls] = jnp.where(better, tri_idx, idx_ref[0:1, ls])
+            out = (jnp.where(better, t_min, t_best),
+                   jnp.where(better, c * bt + row, idx))
             if stats:
-                # row 0: lane-group tile tests; row 1: tests that improved
-                # some ray's best t (the "useful" subset)
-                st = maybe_stats[0]
-                st[0:1, ls] = st[0:1, ls] + 1
-                st[1:2, ls] = st[1:2, ls] + jnp.any(better).astype(jnp.int32)
+                out += (carry[2] + 1,
+                        carry[3] + _any(better).astype(jnp.int32))
+            return out
 
-        def cluster_step(c):
-            enter = _box_enter(caabb_ref, c, rays_ref, t_ref[:])
+        def cluster(c, carry):
+            return jax.lax.cond(_any(enters(caabb_ref, c, carry)), tile,
+                                lambda _c, cr: cr, c, carry)
 
-            @pl.when(jnp.any(enter))
-            def _():
-                off = pl.multiple_of(c * block_t, block_t)
-                tri_tile = tris_ref[pl.ds(off, block_t), :]
-                if subgroups == 1:
-                    _test_lanes(c, tri_tile, None)
-                else:
-                    # cull at 128-lane granularity: incoherent ray blocks
-                    # enter a cluster because of a handful of lanes; the
-                    # other sub-groups skip the triangle math entirely
-                    g = t_ref.shape[1] // subgroups
+        def supers_of(j, carry):
+            def super_body(s, carry):
+                srow = j * n_super + s
 
-                    def grp(k, _):
-                        ls = pl.ds(pl.multiple_of(k * g, g), g)
-                        # recompute the slab test on the lane slice (Mosaic
-                        # can't dynamic-slice the block-wide mask value)
-                        e = _box_enter(caabb_ref, c, rays_ref,
-                                       t_ref[0:1, ls], ls)
+                def children(carry):
+                    return jax.lax.fori_loop(
+                        0, SUPER_G,
+                        lambda k, cr: cluster(srow * SUPER_G + k, cr), carry)
 
-                        @pl.when(jnp.any(e))
-                        def _():
-                            _test_lanes(c, tri_tile, ls)
+                return jax.lax.cond(_any(enters(super_ref, srow, carry)),
+                                    children, lambda cr: cr, carry)
 
-                        return 0
+            return loop(n_super, super_body, carry)
 
-                    jax.lax.fori_loop(0, subgroups, grp, 0)
+        def clusters_of(j, carry):
+            return loop(cps, lambda c, cr: cluster(j * cps + c, cr), carry)
 
-        def sweep():
-            if use_supers:
-                def super_body(s, _):
-                    enter_s = _box_enter(super_aabb_ref, s, rays_ref, t_ref[:])
+        sweep = supers_of if tr.use_supers else clusters_of
 
-                    @pl.when(jnp.any(enter_s))
-                    def _():
-                        for c_off in range(SUPER_G):  # static unroll
-                            cluster_step(s * SUPER_G + c_off)
+        def slab(j, carry):
+            return jax.lax.cond(_any(enters(slab_ref, j, carry)), sweep,
+                                lambda _j, cr: cr, j, carry)
 
-                    return 0
-
-                jax.lax.fori_loop(0, clusters_per_slab // SUPER_G, super_body, 0)
-            else:
-                def cl_body(c, _):
-                    cluster_step(c)
-                    return 0
-
-                jax.lax.fori_loop(0, clusters_per_slab, cl_body, 0)
-
-        if n_slabs > 1:
-            slab_enter = _box_enter(slab_aabb_ref, j, rays_ref, t_ref[:])
-
-            @pl.when(jnp.any(slab_enter))
-            def _():
-                sweep()
+        if any_hit:
+            carry = (jnp.zeros((br,), jnp.int32),)
         else:
-            sweep()
+            carry = (t_max, jnp.full((br,), -1, jnp.int32))
+            if stats:
+                carry += (jnp.zeros((br,), jnp.int32),) * 2
+        if tr.n_slabs > 1:
+            carry = loop(tr.n_slabs, slab, carry)
+        else:  # one slab: its AABB test can never skip anything
+            carry = sweep(0, carry)
+        for ref, val in zip(out_refs, carry):
+            ref[rs] = val
 
     return kernel
 
 
-def _make_any_kernel(block_t: int, clusters_per_slab: int, use_supers: bool,
-                     n_slabs: int, subgroups: int, tile_test=None):
-    if tile_test is None:
-        tile_test = _tile_test
+def run_traversal(tr: Traversal, o, d, t_max, prim_rows, caabb, saabb,
+                  slab_aabb, *, any_hit: bool, stats: bool = False,
+                  interpret: bool = False):
+    """Pack rays, launch the cluster traversal over ray blocks, unpad.
 
-    def kernel(slab_aabb_ref, super_aabb_ref, caabb_ref, rays_ref, tris_ref,
-               hit_ref):
-        j = pl.program_id(1)
-
-        @pl.when(j == 0)
-        def _():
-            hit_ref[:] = jnp.zeros_like(hit_ref)
-
-        t_max = rays_ref[6:7, :]
-
-        def _test_lanes(tri_tile, lane_ds):
-            ls = slice(None) if lane_ds is None else lane_ds
-            _t, ok = tile_test(rays_ref, tri_tile, rays_ref[6:7, ls], lane_ds)
-            any_hit = jnp.any(ok, axis=0, keepdims=True).astype(jnp.int32)
-            hit_ref[0:1, ls] = jnp.maximum(hit_ref[0:1, ls], any_hit)
-
-        def cluster_step(c):
-            not_hit = hit_ref[:] == 0
-            enter = _box_enter(caabb_ref, c, rays_ref, t_max) & not_hit
-
-            @pl.when(jnp.any(enter))
-            def _():
-                off = pl.multiple_of(c * block_t, block_t)
-                tri_tile = tris_ref[pl.ds(off, block_t), :]
-                if subgroups == 1:
-                    _test_lanes(tri_tile, None)
-                else:
-                    g = hit_ref.shape[1] // subgroups
-
-                    def grp(k, _):
-                        ls = pl.ds(pl.multiple_of(k * g, g), g)
-                        nh = hit_ref[0:1, ls] == 0
-                        e = _box_enter(caabb_ref, c, rays_ref,
-                                       rays_ref[6:7, ls], ls) & nh
-
-                        @pl.when(jnp.any(e))
-                        def _():
-                            _test_lanes(tri_tile, ls)
-
-                        return 0
-
-                    jax.lax.fori_loop(0, subgroups, grp, 0)
-
-        def sweep():
-            if use_supers:
-                def super_body(s, _):
-                    not_hit = hit_ref[:] == 0
-                    enter_s = _box_enter(super_aabb_ref, s, rays_ref, t_max) & not_hit
-
-                    @pl.when(jnp.any(enter_s))
-                    def _():
-                        for c_off in range(SUPER_G):
-                            cluster_step(s * SUPER_G + c_off)
-
-                    return 0
-
-                jax.lax.fori_loop(0, clusters_per_slab // SUPER_G, super_body, 0)
-            else:
-                def cl_body(c, _):
-                    cluster_step(c)
-                    return 0
-
-                jax.lax.fori_loop(0, clusters_per_slab, cl_body, 0)
-
-        if n_slabs > 1:
-            not_hit = hit_ref[:] == 0
-            slab_enter = _box_enter(slab_aabb_ref, j, rays_ref, t_max) & not_hit
-
-            @pl.when(jnp.any(slab_enter))
-            def _():
-                sweep()
-        else:
-            sweep()
-
-    return kernel
-
-
-def _slab_grid_call(kernel, rays, tris16, caabb, saabb, slab_aabb,
-                    out_shapes, out_specs, interpret, block_r, cps,
-                    use_supers):
-    n_pad = rays.shape[1]
-    n_slabs = slab_aabb.shape[0]
-    grid = (n_pad // block_r, n_slabs)
-    if use_supers:
-        super_spec = pl.BlockSpec((cps // SUPER_G, 8), lambda i, j: (j, 0),
-                                  memory_space=pltpu.SMEM)
-    else:  # placeholder table the kernel never reads
-        super_spec = pl.BlockSpec(memory_space=pltpu.SMEM)
-    return pl.pallas_call(
-        kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pltpu.SMEM),  # slab AABBs (full)
-            super_spec,
-            pl.BlockSpec((cps, 8), lambda i, j: (j, 0), memory_space=pltpu.SMEM),
-            pl.BlockSpec((RAY_ROWS, block_r), lambda i, j: (0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((cps * _block_t_of(tris16, caabb), TRI_COLS),
-                         lambda i, j: (j, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=out_specs,
-        out_shape=out_shapes,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("arbitrary", "arbitrary"),
-            vmem_limit_bytes=64 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(slab_aabb, saabb, caabb, rays, tris16)
-
-
-def _block_t_of(tris16, caabb) -> int:
-    return tris16.shape[0] // caabb.shape[0]
-
-
-@functools.partial(
-    jax.jit,
-    static_argnames=("interpret", "block_t", "block_r", "clusters_per_slab",
-                     "use_supers", "stats", "subgroups"),
-)
-def tri_closest_hit_tables(o, d, t_max, tris16, caabb, saabb, slab_aabb, *,
-                           block_t: int, clusters_per_slab: int,
-                           use_supers: bool, interpret=False,
-                           block_r: int = BLOCK_R, stats: bool = False,
-                           subgroups: int = 1):
-    """Closest-hit over prebuilt TriTables arrays. o/d: (N,3), t_max: (N,).
-    Returns (t: (N,), tri: (N,) i32 table-row index, -1 on miss); with
-    stats=True also (n_ray_blocks,) entered-cluster counts."""
+    → any_hit: (N,) bool; else (t (N,) FLOAT_MAX on miss, idx (N,) i32
+    table column or -1) and, with stats, per-ray (entered, improved)
+    cluster-tile counts."""
+    _check_pow2("block_r", tr.block_r)
+    _check_pow2("block_t", tr.block_t)
+    if prim_rows.shape != (tr.n_rows, caabb.shape[0] * tr.block_t):
+        raise ValueError(
+            f"primitive table {prim_rows.shape} does not hold "
+            f"{caabb.shape[0]} clusters of {tr.block_t}")
+    if caabb.shape[0] != tr.n_slabs * tr.clusters_per_slab:
+        raise ValueError("cluster table is not a whole number of slabs")
     n = o.shape[0]
-    rays = pack_rays(o, d, t_max, block_r)
+    rays = pack_rays(o, d, t_max, tr.block_r)
     n_pad = rays.shape[1]
-    out_shapes = [
-        jax.ShapeDtypeStruct((1, n_pad), Float),
-        jax.ShapeDtypeStruct((1, n_pad), jnp.int32),
-    ]
-    out_specs = [
-        pl.BlockSpec((1, block_r), lambda i, j: (0, i), memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, block_r), lambda i, j: (0, i), memory_space=pltpu.VMEM),
-    ]
-    if stats:
-        out_shapes.append(jax.ShapeDtypeStruct((2, n_pad), jnp.int32))
-        out_specs.append(
-            pl.BlockSpec((2, block_r), lambda i, j: (0, i), memory_space=pltpu.VMEM)
-        )
-    if subgroups > 1 and block_r % (subgroups * 128):
-        raise ValueError("subgroups must divide block_r into 128-lane multiples")
-    outs = _slab_grid_call(
-        _make_closest_kernel(block_t, clusters_per_slab, use_supers, stats,
-                             slab_aabb.shape[0], subgroups),
-        rays, tris16, caabb, saabb, slab_aabb,
-        out_shapes=out_shapes, out_specs=out_specs,
-        interpret=interpret, block_r=block_r, cps=clusters_per_slab,
-        use_supers=use_supers,
-    )
-    t_out, idx_out = outs[0], outs[1]
-    t = t_out[0, :n]
-    idx = idx_out[0, :n]
+    if any_hit:
+        out_shape = [jax.ShapeDtypeStruct((n_pad,), jnp.int32)]
+    else:
+        out_shape = [jax.ShapeDtypeStruct((n_pad,), Float),
+                     jax.ShapeDtypeStruct((n_pad,), jnp.int32)]
+        if stats:
+            out_shape += [jax.ShapeDtypeStruct((n_pad,), jnp.int32)] * 2
+    outs = pl.pallas_call(
+        _make_kernel(tr, any_hit, stats),
+        grid=(n_pad // tr.block_r,),
+        out_shape=out_shape,
+        backend="triton",
+        compiler_params=pl_triton.CompilerParams(num_warps=tr.num_warps,
+                                                 num_stages=tr.num_stages),
+        interpret=interpret,
+        name="cluster_any_hit" if any_hit else "cluster_closest_hit",
+    )(slab_aabb, saabb, caabb, rays, prim_rows)
+    if any_hit:
+        return outs[0][:n] > 0
+    t, idx = outs[0][:n], outs[1][:n]
     result = (jnp.where(idx >= 0, t, FLOAT_MAX), idx)
     if stats:
-        # per-LANE (entered, improved) tile-test counts: every lane of a
-        # sub-group carries its group's count, so sum(row)·block_t is the
-        # exact number of (tri, lane) pair tests executed
-        return result + (outs[2][0, :n], outs[2][1, :n])
+        return result + (outs[2][:n], outs[3][:n])
     return result
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("interpret", "block_t", "block_r", "clusters_per_slab",
-                     "use_supers", "subgroups"),
-)
-def tri_any_hit_tables(o, d, t_max, tris16, caabb, saabb, slab_aabb, *,
+_TABLE_STATICS = ("interpret", "block_t", "block_r", "clusters_per_slab",
+                  "use_supers")
+
+
+def _tri_traversal(slab_aabb, block_t, clusters_per_slab, use_supers, block_r):
+    return Traversal(_tri_tile_test, TRI_ROWS, block_t, clusters_per_slab,
+                     slab_aabb.shape[0], use_supers, block_r)
+
+
+@functools.partial(jax.jit, static_argnames=_TABLE_STATICS + ("stats",))
+def tri_closest_hit_tables(o, d, t_max, tri_rows, caabb, saabb, slab_aabb, *,
+                           block_t: int, clusters_per_slab: int,
+                           use_supers: bool, interpret=False,
+                           block_r: int = BLOCK_R, stats: bool = False):
+    """Closest-hit over prebuilt TriTables arrays. o/d: (N,3), t_max: (N,).
+    Returns (t: (N,), tri: (N,) i32 table column, -1 on miss); with
+    stats=True also per-ray (entered, improved) cluster-tile counts: every
+    ray of a block carries its block's counts, so sum(entered)·block_t is
+    the number of (triangle, ray) pair tests executed."""
+    tr = _tri_traversal(slab_aabb, block_t, clusters_per_slab, use_supers,
+                        block_r)
+    return run_traversal(tr, o, d, t_max, tri_rows, caabb, saabb, slab_aabb,
+                         any_hit=False, stats=stats, interpret=interpret)
+
+
+@functools.partial(jax.jit, static_argnames=_TABLE_STATICS)
+def tri_any_hit_tables(o, d, t_max, tri_rows, caabb, saabb, slab_aabb, *,
                        block_t: int, clusters_per_slab: int,
                        use_supers: bool, interpret=False,
-                       block_r: int = BLOCK_R, subgroups: int = 1):
+                       block_r: int = BLOCK_R):
     """Any-hit (shadow) test over prebuilt TriTables arrays → (N,) bool."""
-    n = o.shape[0]
-    rays = pack_rays(o, d, t_max, block_r)
-    n_pad = rays.shape[1]
-    if subgroups > 1 and block_r % (subgroups * 128):
-        raise ValueError("subgroups must divide block_r into 128-lane multiples")
-    hit = _slab_grid_call(
-        _make_any_kernel(block_t, clusters_per_slab, use_supers,
-                         slab_aabb.shape[0], subgroups),
-        rays, tris16, caabb, saabb, slab_aabb,
-        out_shapes=jax.ShapeDtypeStruct((1, n_pad), jnp.int32),
-        out_specs=pl.BlockSpec((1, block_r), lambda i, j: (0, i),
-                               memory_space=pltpu.VMEM),
-        interpret=interpret, block_r=block_r, cps=clusters_per_slab,
-        use_supers=use_supers,
-    )
-    return hit[0, :n] > 0
+    tr = _tri_traversal(slab_aabb, block_t, clusters_per_slab, use_supers,
+                        block_r)
+    return run_traversal(tr, o, d, t_max, tri_rows, caabb, saabb, slab_aabb,
+                         any_hit=True, interpret=interpret)
 
 
 def _tables_from_aabbs(p0, p1, p2, valid, aabbs, block_t):
-    """Compat shim for the (p0, p1, p2, valid, aabbs) API: wrap caller-built
-    cluster AABBs (no reordering) into single-slab table arrays. Host-side
-    only — call with concrete arrays."""
+    """Single-slab tables around caller-built cluster AABBs (no
+    reordering). Host-side only — call with concrete arrays."""
     aabbs = np.asarray(aabbs, np.float32)
     nc = aabbs.shape[0]
-    tris16 = pack_tris(p0, p1, p2, valid, block_t)
-    t_need = nc * block_t
-    if tris16.shape[0] < t_need:
-        extra = np.zeros((t_need - tris16.shape[0], TRI_COLS), np.float32)
-        extra[:, 9] = -1.0
-        tris16 = jnp.concatenate([tris16, jnp.asarray(extra)], axis=0)
+    rows = np.zeros((TRI_ROWS, nc * block_t), np.float32)
+    rows[9] = -1.0
+    t = np.asarray(p0).shape[0]
+    rows[:, :t] = pack_tris(p0, p1, p2, valid)
     slab_aabb = union_boxes(aabbs[None, :, :])
-    return tris16, jnp.asarray(aabbs), jnp.asarray(slab_aabb), jnp.asarray(slab_aabb), nc
+    return (jnp.asarray(rows), jnp.asarray(aabbs), jnp.asarray(slab_aabb),
+            jnp.asarray(slab_aabb), nc)
 
 
 def tri_closest_hit_pallas(o, d, t_max, p0, p1, p2, valid, aabbs, *,
                            interpret=False, block_t=BLOCK_T, block_r=BLOCK_R):
     """Closest-hit over a triangle soup with caller-built cluster AABBs
-    (single-slab compat API; see tri_closest_hit_tables). Returns
-    (t: (N,), tri: (N,) i32 row index, -1 on miss)."""
-    tris16, caabb, saabb, slab_aabb, cps = _tables_from_aabbs(
+    (single-slab form of tri_closest_hit_tables). Returns (t: (N,),
+    tri: (N,) i32 row index, -1 on miss)."""
+    rows, caabb, saabb, slab_aabb, cps = _tables_from_aabbs(
         p0, p1, p2, valid, aabbs, block_t
     )
     return tri_closest_hit_tables(
-        o, d, t_max, tris16, caabb, saabb, slab_aabb,
+        o, d, t_max, rows, caabb, saabb, slab_aabb,
         block_t=block_t, clusters_per_slab=cps, use_supers=False,
         interpret=interpret, block_r=block_r,
     )
@@ -813,12 +665,12 @@ def tri_closest_hit_pallas(o, d, t_max, p0, p1, p2, valid, aabbs, *,
 
 def tri_any_hit_pallas(o, d, t_max, p0, p1, p2, valid, aabbs, *,
                        interpret=False, block_t=BLOCK_T, block_r=BLOCK_R):
-    """Any-hit (shadow) test (single-slab compat API). Returns (N,) bool."""
-    tris16, caabb, saabb, slab_aabb, cps = _tables_from_aabbs(
+    """Any-hit (shadow) test (single-slab form). Returns (N,) bool."""
+    rows, caabb, saabb, slab_aabb, cps = _tables_from_aabbs(
         p0, p1, p2, valid, aabbs, block_t
     )
     return tri_any_hit_tables(
-        o, d, t_max, tris16, caabb, saabb, slab_aabb,
+        o, d, t_max, rows, caabb, saabb, slab_aabb,
         block_t=block_t, clusters_per_slab=cps, use_supers=False,
         interpret=interpret, block_r=block_r,
     )

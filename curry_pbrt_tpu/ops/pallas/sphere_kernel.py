@@ -1,25 +1,22 @@
-"""Pallas sphere cluster kernel: cluster-culled closest/any-hit over sphere
-tables, replacing the dense O(rays × spheres) jnp path beyond a few dozen
-spheres (the reference puts spheres in its BVH like any primitive,
-aggregate/bvh.rs:24-124; our dense path was the one remaining O(N·S)
-scaling hole — VERDICT r4 item 9 / aggregate.py's old >256 warning).
+"""Sphere cluster kernel: cluster-culled closest/any-hit over sphere
+tables, replacing the dense O(rays × spheres) jnp path beyond a few
+clusters' worth of spheres (the reference puts spheres in its BVH like any
+primitive, aggregate/bvh.rs:24-124).
 
-Reuses the triangle kernel's machinery wholesale (same ray packing, same
-(1+2γ₃)-widened slab tests, same slab/super/cluster streamed sweep, same
-sub-group predication — intersect_kernel._make_closest_kernel is
-parameterized by tile test): only the per-pair math differs. A sphere is
-one table row holding its world-to-object transform + radius; the tile
-test maps each ray into each sphere's object space (rows (S,1) × ray
-lanes (1,R)) and solves the reference's stable q-form quadratic
-(sphere.rs:111-132) — identical fp ops to ops/intersect.sphere_quadratic,
-so results match the dense path bit-for-bit (modulo exact-t tie winners,
-whose table order differs).
+Reuses the triangle kernel's traversal wholesale (same ray packing, same
+(1+2γ₃)-widened slab tests, same slab/super/cluster sweep —
+intersect_kernel.run_traversal is parameterized by tile test): only the
+per-pair math differs. A sphere is one table column holding its
+world-to-object transform + radius; the tile test maps each ray into each
+sphere's object space ((S,1) × (1,R) tiles) and solves the reference's
+stable q-form quadratic (sphere.rs:111-132) — the same operations as
+ops/intersect.sphere_quadratic.
 
-Sphere table layout (S_pad, 16) f32, spheres on the SUBLANE axis:
-  cols 0-8  w2o rotation rows (r00 r01 r02 r10 .. r22)
-  cols 9-11 w2o translation
-  col 12    radius
-  col 13    valid flag (+1/-1)
+Sphere table layout (SPH_ROWS, S_pad) f32, column-major:
+  rows 0-8  w2o rotation (r00 r01 r02 r10 .. r22)
+  rows 9-11 w2o translation
+  row 12    radius
+  row 13    valid flag (+1/-1)
 """
 
 from __future__ import annotations
@@ -30,42 +27,35 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-from curry_pbrt_tpu.dtypes import FLOAT_MAX, Float
+from curry_pbrt_tpu.dtypes import FLOAT_MAX
 from curry_pbrt_tpu.ops.pallas.intersect_kernel import (
-    SUPER_G,
-    _make_any_kernel,
-    _make_closest_kernel,
-    _round_up,
-    _slab_grid_call,
+    BLOCK_R,
+    SLAB_CLUSTERS,
+    Traversal,
+    _check_pow2,
+    front_to_back,
+    hierarchy_shape,
     kdmedian_order,
+    level_aabbs,
+    run_traversal,
     union_boxes,
 )
 
-BLOCK_S = 64  # spheres per cluster (sublane rows per tile)
-SPH_COLS = 16
+BLOCK_S = 32  # spheres per cluster
+SPH_ROWS = 14
 
 
-def _sphere_tile_test(rays_ref, sph_tile, t_best, lane_ds=None):
-    """Stable-quadratic test of one (BLOCK_S, lanes) tile. Returns (t, ok)
+def _sphere_tile_test(ray, sph, t_best):
+    """Stable-quadratic test of one (block_s, block_r) tile. Returns (t, ok)
     with FLOAT_MAX misses — same acceptance as sphere_quadratic: t0 if ≥ 0
     else t1, reject t0 > t_best or t1 < 0."""
-    ls = slice(None) if lane_ds is None else lane_ds
-    ox = rays_ref[0:1, ls]
-    oy = rays_ref[1:2, ls]
-    oz = rays_ref[2:3, ls]
-    dx = rays_ref[13:14, ls]  # raw direction rows (pack_rays 13-15)
-    dy = rays_ref[14:15, ls]
-    dz = rays_ref[15:16, ls]
-
-    m00 = sph_tile[:, 0:1]; m01 = sph_tile[:, 1:2]; m02 = sph_tile[:, 2:3]
-    m10 = sph_tile[:, 3:4]; m11 = sph_tile[:, 4:5]; m12 = sph_tile[:, 5:6]
-    m20 = sph_tile[:, 6:7]; m21 = sph_tile[:, 7:8]; m22 = sph_tile[:, 8:9]
-    tx = sph_tile[:, 9:10]; ty = sph_tile[:, 10:11]; tz = sph_tile[:, 11:12]
-    radius = sph_tile[:, 12:13]
-    valid = sph_tile[:, 13:14] > 0.0
+    ox, oy, oz = ray[0], ray[1], ray[2]
+    dx, dy, dz = ray[11], ray[12], ray[13]
+    m00, m01, m02, m10, m11, m12, m20, m21, m22 = sph[0:9]
+    tx, ty, tz = sph[9], sph[10], sph[11]
+    radius = sph[12]
+    valid = sph[13] > 0.0
 
     oox = m00 * ox + m01 * oy + m02 * oz + tx  # (S, R)
     ooy = m10 * ox + m11 * oy + m12 * oz + ty
@@ -85,8 +75,7 @@ def _sphere_tile_test(rays_ref, sph_tile, t_best, lane_ds=None):
     pz = ooz + t_center * ddz
     perp2 = px * px + py * py + pz * pz
     disc_ok = (perp2 <= r2) & (a > 0)
-    # safe_sqrt's forward form (double-where), identical fp ops to the
-    # dense path so t matches bit-for-bit
+    # safe_sqrt's forward form (double-where), the dense path's operations
     disc = a * (r2 - perp2)
     s = jnp.where(disc <= 0.0, 0.0,
                   jnp.sqrt(jnp.where(disc <= 0.0, 1.0, disc)))
@@ -106,7 +95,7 @@ def _sphere_tile_test(rays_ref, sph_tile, t_best, lane_ds=None):
 class SphereTables:
     """Host-built sphere kernel tables (kd-ordered, slab-padded)."""
 
-    sph16: np.ndarray  # (S_pad, 16)
+    sph_rows: np.ndarray  # (SPH_ROWS, S_pad)
     row_sphere: np.ndarray  # (S_pad,) i32 original sphere index, -1 pad
     cluster_aabbs: np.ndarray  # (C, 8)
     super_aabbs: np.ndarray
@@ -120,12 +109,13 @@ def build_sphere_tables(
     w2o, o2w, radius, prim,
     block_s: int = BLOCK_S,
     view_origin=None,
-    clusters_per_slab: int = 256,
+    clusters_per_slab: int = SLAB_CLUSTERS,
     use_supers=None,
 ) -> SphereTables:
-    """kd-median-order spheres by world center, group block_s rows into
+    """kd-median-order spheres by world center, group block_s columns into
     AABB-carrying clusters (+supers/slabs as the tri tables), order
-    front-to-back from view_origin. Invalid rows get valid=-1."""
+    front-to-back from view_origin. Invalid columns get valid=-1."""
+    _check_pow2("block_s", block_s)
     w2o = np.asarray(w2o, np.float32)
     o2w = np.asarray(o2w, np.float32)
     radius = np.asarray(radius, np.float32)
@@ -138,33 +128,24 @@ def build_sphere_tables(
     rw = np.abs(o2w[:, :3, :3]).sum(axis=2).max(axis=1) * radius
 
     order = kdmedian_order(centers, centers, centers, block_s)
-    w2o, o2w, radius, prim = w2o[order], o2w[order], radius[order], prim[order]
+    w2o, radius, prim = w2o[order], radius[order], prim[order]
     centers, rw = centers[order], rw[order]
 
-    nc_raw = -(-max(s, 1) // block_s)
-    if use_supers is None:
-        use_supers = nc_raw > 96
-    use_supers = bool(use_supers)
-    if use_supers or nc_raw > clusters_per_slab:
-        nc = _round_up(nc_raw, SUPER_G)
-        cps = int(min(clusters_per_slab, nc))
-        n_slabs = -(-nc // cps)
-        nc = n_slabs * cps
-    else:
-        nc, cps, n_slabs = nc_raw, nc_raw, 1
+    nc, cps, n_slabs, use_supers = hierarchy_shape(
+        s, block_s, clusters_per_slab, use_supers)
     s_pad = nc * block_s
 
-    sph16 = np.zeros((s_pad, SPH_COLS), np.float32)
-    sph16[:, 13] = -1.0
-    sph16[:s, 0:9] = w2o[:, :3, :3].reshape(s, 9)
-    sph16[:s, 9:12] = w2o[:, :3, 3]
-    sph16[:s, 12] = radius
-    sph16[:s, 13] = np.where(prim >= 0, 1.0, -1.0)
+    sph = np.zeros((SPH_ROWS, s_pad), np.float32)
+    sph[13] = -1.0
+    sph[0:9, :s] = w2o[:, :3, :3].reshape(s, 9).T
+    sph[9:12, :s] = w2o[:, :3, 3].T
+    sph[12, :s] = radius
+    sph[13, :s] = np.where(prim >= 0, 1.0, -1.0)
     row_sphere = np.concatenate(
         [order.astype(np.int32), np.full((s_pad - s,), -1, np.int32)]
     )
 
-    valid = sph16[:, 13] > 0
+    valid = sph[13] > 0
     bmin = np.where(valid[:s, None], centers - rw[:, None], np.nan)
     bmax = np.where(valid[:s, None], centers + rw[:, None], np.nan)
     bmin = np.concatenate([bmin, np.full((s_pad - s, 3), np.nan, np.float32)])
@@ -175,105 +156,51 @@ def build_sphere_tables(
     caabb = union_boxes(boxes8.reshape(nc, block_s, 8))
 
     if view_origin is not None:
-        vo = np.asarray(view_origin, np.float64)
-        ccent = (caabb[:, 0:3].astype(np.float64) + caabb[:, 3:6]) * 0.5
-        cdist = np.linalg.norm(ccent - vo, axis=-1)
-        cdist = np.where(np.isnan(cdist), np.inf, cdist)
-        ns = nc // SUPER_G
-        if nc % SUPER_G == 0:
-            sdist = cdist.reshape(ns, SUPER_G).min(axis=1)
-            sorder = np.argsort(sdist, kind="stable")
-            within = np.argsort(cdist.reshape(ns, SUPER_G), axis=1, kind="stable")
-            cluster_order = (sorder[:, None] * SUPER_G + within[sorder]).reshape(-1)
-        else:
-            cluster_order = np.argsort(cdist, kind="stable")
-        row_order = (
+        cluster_order = front_to_back(caabb, view_origin)
+        col_order = (
             cluster_order[:, None] * block_s + np.arange(block_s)[None, :]
         ).reshape(-1)
-        sph16, row_sphere = sph16[row_order], row_sphere[row_order]
+        sph, row_sphere = sph[:, col_order], row_sphere[col_order]
         caabb = caabb[cluster_order]
-
-    use_supers = use_supers and cps > SUPER_G
-    ns = nc // SUPER_G
-    if use_supers:
-        saabb = union_boxes(caabb.reshape(ns, SUPER_G, 8))
-    else:
-        saabb = union_boxes(caabb[None, :, :])
-    slab_aabb = union_boxes(caabb.reshape(n_slabs, cps, 8))
+    saabb, slab_aabb = level_aabbs(caabb, cps, n_slabs, use_supers)
 
     return SphereTables(
-        sph16=sph16, row_sphere=row_sphere, cluster_aabbs=caabb,
+        sph_rows=sph, row_sphere=row_sphere, cluster_aabbs=caabb,
         super_aabbs=saabb, slab_aabbs=slab_aabb, block_s=block_s,
         clusters_per_slab=cps, use_supers=use_supers,
     )
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("interpret", "block_s", "block_r", "clusters_per_slab",
-                     "use_supers", "subgroups"),
-)
-def sphere_closest_hit_tables(o, d, t_max, sph16, caabb, saabb, slab_aabb, *,
-                              block_s: int, clusters_per_slab: int,
+_STATICS = ("interpret", "block_s", "block_r", "clusters_per_slab",
+            "use_supers")
+
+
+def _sphere_traversal(slab_aabb, block_s, clusters_per_slab, use_supers,
+                      block_r):
+    return Traversal(_sphere_tile_test, SPH_ROWS, block_s, clusters_per_slab,
+                     slab_aabb.shape[0], use_supers, block_r)
+
+
+@functools.partial(jax.jit, static_argnames=_STATICS)
+def sphere_closest_hit_tables(o, d, t_max, sph_rows, caabb, saabb, slab_aabb,
+                              *, block_s: int, clusters_per_slab: int,
                               use_supers: bool, interpret=False,
-                              block_r: int = 2048, subgroups: int = 1):
-    """Closest-hit over sphere tables → (t: (N,), row: (N,) i32 table row,
-    -1 on miss)."""
-    from curry_pbrt_tpu.ops.pallas.intersect_kernel import pack_rays
-
-    n = o.shape[0]
-    rays = pack_rays(o, d, t_max, block_r)
-    n_pad = rays.shape[1]
-    out_shapes = [
-        jax.ShapeDtypeStruct((1, n_pad), Float),
-        jax.ShapeDtypeStruct((1, n_pad), jnp.int32),
-    ]
-    out_specs = [
-        pl.BlockSpec((1, block_r), lambda i, j: (0, i), memory_space=pltpu.VMEM),
-        pl.BlockSpec((1, block_r), lambda i, j: (0, i), memory_space=pltpu.VMEM),
-    ]
-    if subgroups > 1 and block_r % (subgroups * 128):
-        raise ValueError("subgroups must divide block_r into 128-lane multiples")
-    outs = _slab_grid_call(
-        _make_closest_kernel(block_s, clusters_per_slab, use_supers, False,
-                             slab_aabb.shape[0], subgroups,
-                             tile_test=_sphere_tile_test),
-        rays, sph16, caabb, saabb, slab_aabb,
-        out_shapes=out_shapes, out_specs=out_specs,
-        interpret=interpret, block_r=block_r, cps=clusters_per_slab,
-        use_supers=use_supers,
-    )
-    t = outs[0][0, :n]
-    idx = outs[1][0, :n]
-    return jnp.where(idx >= 0, t, FLOAT_MAX), idx
+                              block_r: int = BLOCK_R):
+    """Closest-hit over sphere tables → (t: (N,), col: (N,) i32 table
+    column, -1 on miss)."""
+    tr = _sphere_traversal(slab_aabb, block_s, clusters_per_slab, use_supers,
+                           block_r)
+    return run_traversal(tr, o, d, t_max, sph_rows, caabb, saabb, slab_aabb,
+                         any_hit=False, interpret=interpret)
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("interpret", "block_s", "block_r", "clusters_per_slab",
-                     "use_supers", "subgroups"),
-)
-def sphere_any_hit_tables(o, d, t_max, sph16, caabb, saabb, slab_aabb, *,
+@functools.partial(jax.jit, static_argnames=_STATICS)
+def sphere_any_hit_tables(o, d, t_max, sph_rows, caabb, saabb, slab_aabb, *,
                           block_s: int, clusters_per_slab: int,
                           use_supers: bool, interpret=False,
-                          block_r: int = 2048, subgroups: int = 1):
+                          block_r: int = BLOCK_R):
     """Any-hit over sphere tables → (N,) bool."""
-    from curry_pbrt_tpu.ops.pallas.intersect_kernel import pack_rays
-
-    n = o.shape[0]
-    rays = pack_rays(o, d, t_max, block_r)
-    n_pad = rays.shape[1]
-    if subgroups > 1 and block_r % (subgroups * 128):
-        raise ValueError("subgroups must divide block_r into 128-lane multiples")
-    hit = _slab_grid_call(
-        _make_any_kernel(block_s, clusters_per_slab, use_supers,
-                         slab_aabb.shape[0], subgroups,
-                         tile_test=_sphere_tile_test),
-        rays, sph16, caabb, saabb, slab_aabb,
-        out_shapes=jax.ShapeDtypeStruct((1, n_pad), jnp.int32),
-        out_specs=pl.BlockSpec((1, block_r), lambda i, j: (0, i),
-                               memory_space=pltpu.VMEM),
-        interpret=interpret, block_r=block_r, cps=clusters_per_slab,
-        use_supers=use_supers,
-    )
-    return hit[0, :n] > 0
+    tr = _sphere_traversal(slab_aabb, block_s, clusters_per_slab, use_supers,
+                           block_r)
+    return run_traversal(tr, o, d, t_max, sph_rows, caabb, saabb, slab_aabb,
+                         any_hit=True, interpret=interpret)

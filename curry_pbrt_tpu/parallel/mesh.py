@@ -2,18 +2,18 @@
 
 The reference's only parallelism is rayon work-stealing over 16×16 film
 tiles with a mutex-guarded merge (/root/reference/src/render.rs:19-47).
-The TPU replacement is SPMD data parallelism over rays:
+The replacement is SPMD data parallelism over rays:
 
   * the pixel batch is sharded across the mesh's 'rays' axis with
-    `shard_map`; every chip renders its own pixel slab;
+    `shard_map`; every device renders its own pixel slab;
   * scene geometry, BVH, textures, and params are REPLICATED (the
-    BASELINE.json north star: geometry+textures replicated per chip);
+    BASELINE.json north star: geometry+textures replicated per device);
   * per-device partial films are disjoint, so the "merge" is just the
     sharded output layout — no mutex, no collective on the forward path;
   * for inverse rendering, per-device loss/gradients are all-reduced with
-    `psum` inside the same shard_map (ICI collective — the analog of the
-    reference's nonexistent gradient sync, and the pattern that scales to
-    multi-host DCN via jax.distributed).
+    `psum` inside the same shard_map (an NCCL collective on GPUs — the
+    analog of the reference's nonexistent gradient sync, and the pattern
+    that scales to several hosts via jax.distributed).
 
 Determinism: each ray's Halton stream depends only on (pixel, sample), so
 device count does not change the image.

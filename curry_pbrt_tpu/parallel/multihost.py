@@ -1,11 +1,11 @@
 """Multi-host orchestration.
 
 The reference's only cross-machine story is an rsync+ssh script
-(/root/reference/script/deploy.sh). The TPU-native replacement is JAX's
-multi-controller runtime: every host runs the same program,
-`jax.distributed.initialize` wires the pod slice together, the global mesh
-spans all chips, and the film rows each host renders land in its local
-shards; host 0 gathers and writes the PNG.
+(/root/reference/script/deploy.sh). The replacement is JAX's
+multi-controller runtime: one process per host drives all of that host's
+GPUs, `jax.distributed.initialize` joins the processes, the global mesh
+spans every GPU of every host, and the film rows each process renders land
+in its local shards; process 0 gathers and writes the PNG.
 
 Launch (one command per host, or via your scheduler):
 
@@ -35,13 +35,16 @@ def initialize(coordinator: Optional[str], num_processes: int, process_id: int):
 
 def render_distributed(scene_path, overrides=None, coordinator=None,
                        num_processes=1, process_id=0, output=None):
-    """Render with rays sharded over every chip of every host.
+    """Render with rays sharded over every device of every process.
 
     Multi-controller semantics: every process compiles the same scene and
-    the same program; pixel inputs become GLOBAL sharded arrays (each
-    process materializes only its devices' rows via make_array_from_callback)
-    and the per-process output rows are allgathered so every host holds the
-    full film; host 0 writes the PNG."""
+    the same program. The film is cut into groups of (devices × the plan's
+    chunk) pixels, so per-device memory stays at one chunk's working set
+    whatever the film size; each group's pixel inputs become GLOBAL sharded
+    arrays (each process materializes only its devices' rows via
+    make_array_from_callback), and the per-process output rows are
+    allgathered so every process holds the full film; process 0 writes the
+    PNG."""
     jax = initialize(coordinator, num_processes, process_id)
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
@@ -56,10 +59,11 @@ def render_distributed(scene_path, overrides=None, coordinator=None,
     n_dev = len(jax.devices())
     xres, yres = scene.settings.resolution
     n_pixels = xres * yres
-    pad = (-n_pixels) % n_dev
-    n_padded = n_pixels + pad
 
-    plan = plan_render(scene, chunk_pixels=n_padded)
+    plan = plan_render(scene)
+    group = min(plan.chunk_pixels, -(-n_pixels // n_dev)) * n_dev
+    n_groups = -(-n_pixels // group)
+    pad = n_groups * group - n_pixels
     mesh = make_mesh()
     render = make_sharded_render(plan, mesh)
 
@@ -70,18 +74,22 @@ def render_distributed(scene_path, overrides=None, coordinator=None,
     po_np = np.pad(plan.pixel_offsets.reshape(-1), (0, pad))
     shard = NamedSharding(mesh, P("rays"))
     shard2 = NamedSharding(mesh, P("rays", None))
-    po = jax.make_array_from_callback(po_np.shape, shard, lambda i: po_np[i])
-    px = jax.make_array_from_callback(px_np.shape, shard2, lambda i: px_np[i])
-    out = render(scene.init_params, po, px)
+    parts = []
+    for g in range(n_groups):
+        sl = slice(g * group, (g + 1) * group)
+        po_g, px_g = po_np[sl], px_np[sl]
+        po = jax.make_array_from_callback(po_g.shape, shard, lambda i: po_g[i])
+        px = jax.make_array_from_callback(px_g.shape, shard2, lambda i: px_g[i])
+        out = render(scene.init_params, po, px)
+        # this process's contiguous rows, allgathered across processes
+        shards = sorted(out.addressable_shards, key=lambda s: s.index[0].start or 0)
+        rows = np.concatenate([np.asarray(s.data) for s in shards], axis=0)
+        if num_processes > 1:
+            from jax.experimental import multihost_utils
 
-    # assemble this process's contiguous rows, then allgather across hosts
-    shards = sorted(out.addressable_shards, key=lambda s: s.index[0].start or 0)
-    rows = np.concatenate([np.asarray(s.data) for s in shards], axis=0)
-    if num_processes > 1:
-        from jax.experimental import multihost_utils
-
-        rows = np.asarray(multihost_utils.process_allgather(rows, tiled=True))
-    img = rows[:n_pixels].reshape(yres, xres, 3)
+            rows = np.asarray(multihost_utils.process_allgather(rows, tiled=True))
+        parts.append(rows)
+    img = np.concatenate(parts)[:n_pixels].reshape(yres, xres, 3)
     if process_id == 0:
         path = output or scene.settings.filename
         write_png(path, np.asarray(F.to_srgb_u8(jnp.asarray(img))))

@@ -6,7 +6,7 @@
 // (sort per axis, prefix/suffix bound sweeps, cost = 0.125 +
 // (nL·SA_L + nR·SA_R)/SA_parent, leaf when best cost > count) — plus the
 // hit/miss-link threading and LEAF_SIZE leaf chaining that ops/bvh.py
-// needs for stackless TPU traversal. Exposed via a plain C ABI for ctypes.
+// needs for stackless traversal. Exposed via a plain C ABI for ctypes.
 //
 // Build: make -C native  (produces native/libbvh.so)
 

@@ -1,6 +1,7 @@
 #!/bin/bash
-# Launch a multi-host render across a TPU pod slice (replaces the
-# reference's rsync+ssh deploy.sh with the JAX multi-controller runtime).
+# Launch a multi-host render over GPU hosts (replaces the reference's
+# rsync+ssh deploy.sh with the JAX multi-controller runtime). One process
+# per host drives every GPU of that host.
 #
 # Usage: COORD=host0:8476 NPROC=2 script/launch_pod.sh scenes/cornell.pbrt
 # Run once per host with PROCESS_ID set (or let your scheduler set it).

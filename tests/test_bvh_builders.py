@@ -1,6 +1,6 @@
 """C++ SAH builder vs numpy fallback: both must produce structurally valid
-flat BVHs that traverse to identical hits (VERDICT r2 items 8/9 — whichever
-builder CI exercises, the other was untested)."""
+flat BVHs that traverse to identical hits (whichever builder CI exercises, the other
+would otherwise go untested)."""
 
 import numpy as np
 import jax.numpy as jnp

@@ -1,6 +1,6 @@
 """Direct-lighting integrator: the reference enumerates every delta branch
 per ray (direct_light.rs:12-42); we follow ONE luminance-weighted branch per
-lane (unbiased, O(depth) batch traces — VERDICT r2 item 7). These tests pin
+lane (unbiased, O(depth) batch traces). These tests pin
 the estimator's behavior."""
 
 import numpy as np

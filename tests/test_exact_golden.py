@@ -1,4 +1,4 @@
-"""Bit-exact golden images (VERDICT r3 item 6).
+"""Bit-exact golden images.
 
 The renderer is provably deterministic on a fixed platform
 (test_golden.py's re-render test), so the CPU test platform can gate on

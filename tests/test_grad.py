@@ -154,10 +154,10 @@ def _apply(opt, params, state, grads):
 class TestGradientBackendEquivalence:
     def test_grad_matches_across_intersectors(self, setup):
         """Parameter gradients must be identical through every intersector
-        backend: the TPU production path (pallas, here in interpret mode)
+        backend: the GPU production path (pallas, here in interpret mode)
         detaches ray geometry inside the kernel wrapper
         (ops/pallas/aggregate.py:_detached), and a misplaced stop_gradient
-        there would ship silently — brute is the oracle (VERDICT r4 item 3).
+        there would ship silently — brute is the oracle.
         """
         scene, _plan, po, px = setup
 

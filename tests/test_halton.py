@@ -115,7 +115,7 @@ class TestSamples:
         idx = jnp.arange(4096).astype(jnp.uint32)
         # covers the deepest dim any BASELINE config consumes (depth 8 →
         # dim_base 4 + 8·8 = 68 < 1000): true scrambled Halton, no hash
-        # fallback (VERDICT r2 item 6; reference table halton.rs:141-203)
+        # fallback (reference table halton.rs:141-203)
         for dim in (2, 3, 7, 35, 67, 500):
             u = np.asarray(h.halton_sample(idx, dim, cfg, perms))
             hist, _ = np.histogram(u, bins=16, range=(0, 1))

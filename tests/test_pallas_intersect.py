@@ -1,7 +1,7 @@
 """Equivalence: Pallas cluster-culled triangle kernel vs the jnp brute
 intersector.
 
-Runs in interpret mode on the CPU test platform (same math as
+Runs the Triton kernel in interpret mode on the CPU test platform (same math as
 ops/intersect.py:watertight_core, so t values must match exactly and the
 winning triangle must agree wherever the min is unique). The cluster AABB
 cull must never change results — only skip work.
@@ -112,56 +112,6 @@ def test_kdmedian_order_properties():
     assert sa_kd <= sa_mo
 
 
-def test_group_kernel_bit_equal_t():
-    """The 8-ray-granularity experiment kernel (intersect_group.py — kept
-    as the measured silicon-floor proof, PERF.md r5) must stay bit-equal
-    on t to the production lane-major kernel: identical per-pair fp ops,
-    and the accepted-pair min is visit-order independent."""
-    from curry_pbrt_tpu.ops.pallas.intersect_kernel import build_tri_tables
-    from curry_pbrt_tpu.ops.pallas.intersect_group import (
-        tri_any_hit_groups,
-        tri_closest_hit_groups,
-        tris_lane_major,
-    )
-
-    o, d, t_max, p0, p1, p2 = _random_scene(17, n_rays=256, n_tris=900,
-                                            spread=6.0)
-    prim = np.arange(900, dtype=np.int32)
-    view = np.zeros(3)
-
-    tabA = build_tri_tables(p0, p1, p2, prim, block_t=64, view_origin=view)
-    tA, iA = tri_closest_hit_pallas(
-        o, d, t_max, jnp.asarray(tabA.p0), jnp.asarray(tabA.p1),
-        jnp.asarray(tabA.p2), jnp.asarray(tabA.valid),
-        tabA.cluster_aabbs, interpret=True, block_t=64,
-    )
-    tabB = build_tri_tables(p0, p1, p2, prim, block_t=128, view_origin=view,
-                            clusters_per_slab=8, use_supers=True)
-    tB, iB = tri_closest_hit_groups(
-        o, d, t_max, jnp.asarray(tris_lane_major(tabB)),
-        jnp.asarray(tabB.cluster_aabbs), jnp.asarray(tabB.super_aabbs),
-        jnp.asarray(tabB.slab_aabbs), block_t=128,
-        clusters_per_slab=tabB.clusters_per_slab, interpret=True,
-        block_r=256,
-    )
-    np.testing.assert_array_equal(np.asarray(tA), np.asarray(tB))
-    # winners map to the same prim through each table's own row order
-    pA = np.where(np.asarray(iA) >= 0,
-                  tabA.prim[np.clip(np.asarray(iA), 0, len(tabA.prim) - 1)], -1)
-    pB = np.where(np.asarray(iB) >= 0,
-                  tabB.prim[np.clip(np.asarray(iB), 0, len(tabB.prim) - 1)], -1)
-    np.testing.assert_array_equal(pA, pB)
-    hB = tri_any_hit_groups(
-        o, d, t_max * 0.999, jnp.asarray(tris_lane_major(tabB)),
-        jnp.asarray(tabB.cluster_aabbs), jnp.asarray(tabB.super_aabbs),
-        jnp.asarray(tabB.slab_aabbs), block_t=128,
-        clusters_per_slab=tabB.clusters_per_slab, interpret=True,
-        block_r=256,
-    )
-    np.testing.assert_array_equal(np.asarray(hB),
-                                  np.asarray(tB) <= np.asarray(t_max) * 0.999)
-
-
 def test_any_hit_matches_brute():
     o, d, t_max, p0, p1, p2 = _random_scene(7, n_rays=96, n_tris=21)
     tris = isect.TriangleArrays(p0, p1, p2, jnp.arange(p0.shape[0], dtype=jnp.int32))
@@ -220,12 +170,12 @@ def test_aggregate_matches_brute_on_mesh():
     )
 
 
-def _tables_closest(o, d, t_max, tables, block_r=1024):
+def _tables_closest(o, d, t_max, tables, block_r=64):
     from curry_pbrt_tpu.ops.pallas.intersect_kernel import tri_closest_hit_tables
 
     return tri_closest_hit_tables(
         o, d, t_max,
-        jnp.asarray(tables.tris16), jnp.asarray(tables.cluster_aabbs),
+        jnp.asarray(tables.tri_rows), jnp.asarray(tables.cluster_aabbs),
         jnp.asarray(tables.super_aabbs), jnp.asarray(tables.slab_aabbs),
         block_t=tables.block_t, clusters_per_slab=tables.clusters_per_slab,
         use_supers=tables.use_supers, interpret=True, block_r=block_r,
@@ -234,9 +184,9 @@ def _tables_closest(o, d, t_max, tables, block_r=1024):
 
 @pytest.mark.parametrize("cps,use_supers", [(16, True), (16, False), (8, False)])
 def test_multislab_streaming_matches_brute(cps, use_supers):
-    """Streamed multi-slab grid + super-cluster level vs brute: 1.9k tris →
-    30 clusters → 2-4 slabs at clusters_per_slab=8/16; exercises the j==0
-    output init, cross-slab t tightening, and the slab/super AABB skips."""
+    """Multi-slab hierarchy + super-cluster level vs brute: 1.9k tris →
+    30 clusters → 2-4 slabs at clusters_per_slab=8/16; exercises the
+    cross-slab t tightening and the slab/super AABB skips."""
     from curry_pbrt_tpu.ops.pallas.intersect_kernel import build_tri_tables
 
     o, d, t_max, p0, p1, p2 = _random_scene(21, n_rays=256, n_tris=1900, spread=6.0)
@@ -288,10 +238,10 @@ def test_multislab_any_hit_matches_brute():
     got = np.asarray(
         tri_any_hit_tables(
             o, d, t_max,
-            jnp.asarray(tables.tris16), jnp.asarray(tables.cluster_aabbs),
+            jnp.asarray(tables.tri_rows), jnp.asarray(tables.cluster_aabbs),
             jnp.asarray(tables.super_aabbs), jnp.asarray(tables.slab_aabbs),
             block_t=tables.block_t, clusters_per_slab=tables.clusters_per_slab,
-            use_supers=tables.use_supers, interpret=True, block_r=1024,
+            use_supers=tables.use_supers, interpret=True, block_r=64,
         )
     )
     np.testing.assert_array_equal(got, ref)
@@ -326,11 +276,10 @@ def test_build_tri_tables_is_permutation_with_padding():
 
 
 def test_600k_tri_scene_matches_brute_subsample():
-    """Scene-size ceiling: the r3 kernel raised ValueError beyond 500k
-    VMEM-resident tris; the streamed-slab grid must handle 620k
+    """Scene-size ceiling: the slab hierarchy must handle 620k tris
     (scenes/torus600k.ply scale — reference renders any PLY that fits RAM,
     plymesh.rs:49-131). Synthetic torus, 64 probe rays, brute reference
-    computed in ray chunks to bound memory."""
+    computed in triangle chunks to bound memory."""
     import sys
     from pathlib import Path
 
@@ -358,8 +307,8 @@ def test_600k_tri_scene_matches_brute_subsample():
 
     tables = build_tri_tables(p0, p1, p2, np.arange(n_tris, dtype=np.int32),
                               block_t=64, view_origin=np.array([0.0, 0.0, -4.0]))
-    assert tables.n_slabs > 2  # actually exercises streaming
-    t, widx = map(np.asarray, _tables_closest(o_j, d_j, t_max, tables, block_r=128))
+    assert tables.n_slabs > 2  # actually exercises the slab level
+    t, widx = map(np.asarray, _tables_closest(o_j, d_j, t_max, tables, block_r=64))
 
     # chunked brute reference (dense (64, T) would be ~160 MB per temp)
     ref_t = np.full((64,), np.inf, np.float32)
@@ -379,8 +328,8 @@ def test_600k_tri_scene_matches_brute_subsample():
 
 
 def test_subgroup_predication_matches_brute():
-    """128-lane sub-group culling must only skip work, never change
-    results (the big-scene default: subgroups = block_r/128)."""
+    """Culling granularity is the program's ray block: its size must only
+    change how much work is skipped, never the results."""
     from curry_pbrt_tpu.ops.pallas.intersect_kernel import (
         build_tri_tables,
         tri_any_hit_tables,
@@ -392,22 +341,22 @@ def test_subgroup_predication_matches_brute():
     tables = build_tri_tables(p0, p1, p2, tris.prim, block_t=64,
                               view_origin=np.array([0.0, 0.0, -9.0]),
                               use_supers=True)
-    args = (jnp.asarray(tables.tris16), jnp.asarray(tables.cluster_aabbs),
+    args = (jnp.asarray(tables.tri_rows), jnp.asarray(tables.cluster_aabbs),
             jnp.asarray(tables.super_aabbs), jnp.asarray(tables.slab_aabbs))
     kw = dict(block_t=tables.block_t,
               clusters_per_slab=tables.clusters_per_slab,
-              use_supers=tables.use_supers, interpret=True, block_r=512)
-    t1, i1 = tri_closest_hit_tables(o, d, t_max, *args, subgroups=1, **kw)
-    t4, i4 = tri_closest_hit_tables(o, d, t_max, *args, subgroups=4, **kw)
+              use_supers=tables.use_supers, interpret=True)
+    t1, i1 = tri_closest_hit_tables(o, d, t_max, *args, block_r=32, **kw)
+    t4, i4 = tri_closest_hit_tables(o, d, t_max, *args, block_r=128, **kw)
     np.testing.assert_array_equal(np.asarray(i1), np.asarray(i4))
     np.testing.assert_array_equal(np.asarray(t1), np.asarray(t4))
-    h1 = tri_any_hit_tables(o, d, t_max, *args, subgroups=1, **kw)
-    h4 = tri_any_hit_tables(o, d, t_max, *args, subgroups=4, **kw)
+    h1 = tri_any_hit_tables(o, d, t_max, *args, block_r=32, **kw)
+    h4 = tri_any_hit_tables(o, d, t_max, *args, block_r=128, **kw)
     np.testing.assert_array_equal(np.asarray(h1), np.asarray(h4))
 
 
 def test_stats_outputs_do_not_change_results():
-    """stats=True (the roofline instrumentation) must return the same
+    """stats=True (the executed-work counters) must return the same
     (t, idx) plus sane entered/improved counters."""
     from curry_pbrt_tpu.ops.pallas.intersect_kernel import (
         build_tri_tables,
@@ -417,11 +366,11 @@ def test_stats_outputs_do_not_change_results():
     o, d, t_max, p0, p1, p2 = _random_scene(51, n_rays=300, n_tris=900, spread=4.0)
     tables = build_tri_tables(p0, p1, p2, np.arange(900, dtype=np.int32),
                               block_t=64, use_supers=True)
-    args = (jnp.asarray(tables.tris16), jnp.asarray(tables.cluster_aabbs),
+    args = (jnp.asarray(tables.tri_rows), jnp.asarray(tables.cluster_aabbs),
             jnp.asarray(tables.super_aabbs), jnp.asarray(tables.slab_aabbs))
     kw = dict(block_t=tables.block_t,
               clusters_per_slab=tables.clusters_per_slab,
-              use_supers=tables.use_supers, interpret=True, block_r=512)
+              use_supers=tables.use_supers, interpret=True, block_r=64)
     t0, i0 = tri_closest_hit_tables(o, d, t_max, *args, **kw)
     t1, i1, entered, improved = tri_closest_hit_tables(
         o, d, t_max, *args, stats=True, **kw

@@ -64,7 +64,7 @@ def test_sharding_efficiency_proxy_above_065():
     np.testing.assert_allclose(img_1, img_8, atol=1e-7)
     efficiency = wall_1 / wall_8
     overhead = wall_8 - wall_1
-    # Two complementary bounds (VERDICT r4 item 7):
+    # Two complementary bounds:
     #   ratio >= 0.65 — structural-regression tripwire (e.g. an accidental
     #     cross-device collective in the forward path). The ratio is
     #     sensitive to absolute speed: shard_map's per-call overhead is

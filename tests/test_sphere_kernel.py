@@ -8,6 +8,7 @@ import jax.numpy as jnp
 import pytest
 
 from curry_pbrt_tpu.ops import intersect as isect
+from curry_pbrt_tpu.ops.pallas import aggregate
 from curry_pbrt_tpu.ops.pallas.aggregate import make_pallas_intersectors
 
 
@@ -34,6 +35,13 @@ def _random_sphere_arrays(seed, n, spread=12.0, rigid_only=False):
     )
 
 
+def _intersectors(monkeypatch, tris, sph, kernel_min):
+    """Intersectors with the sphere-kernel threshold at kernel_min: 1
+    forces the cluster kernel, a huge value the dense jnp path."""
+    monkeypatch.setattr(aggregate, "SPH_KERNEL_MIN", kernel_min)
+    return make_pallas_intersectors(tris, sph, view_origin=np.zeros(3))
+
+
 def _empty_tris():
     z = jnp.zeros((1, 3), jnp.float32)
     return isect.TriangleArrays(z, z, z, jnp.full((1,), -1, jnp.int32))
@@ -49,7 +57,7 @@ def _rays(seed, n, spread=14.0):
     return jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_max)
 
 
-def test_sphere_kernel_matches_dense_translation():
+def test_sphere_kernel_matches_dense_translation(monkeypatch):
     """Translation-only object spaces: same math up to XLA fusing FMAs
     differently between the two lowerings (the tri-kernel tests' last-ULP
     convention) — hit sets and winners must agree exactly, t to ≤2 ULP."""
@@ -68,14 +76,8 @@ def test_sphere_kernel_matches_dense_translation():
     tris = _empty_tris()
     o, d, t_max = _rays(5, 2048)
 
-    import os
-    os.environ["CURRY_SPH_KERNEL_MIN"] = "999999"
-    try:
-        i_d, p_d, tp_d = make_pallas_intersectors(tris, sph, view_origin=np.zeros(3))
-        os.environ["CURRY_SPH_KERNEL_MIN"] = "1"
-        i_k, p_k, tp_k = make_pallas_intersectors(tris, sph, view_origin=np.zeros(3))
-    finally:
-        del os.environ["CURRY_SPH_KERNEL_MIN"]
+    i_d, p_d, tp_d = _intersectors(monkeypatch, tris, sph, 999999)
+    i_k, p_k, tp_k = _intersectors(monkeypatch, tris, sph, 1)
 
     hd, hk = i_d(o, d, t_max), i_k(o, d, t_max)
     td_, tk_ = np.asarray(hd.t), np.asarray(hk.t)
@@ -105,10 +107,8 @@ def test_sphere_kernel_matches_dense_affine(monkeypatch, n_sph):
     o, d, t_max = _rays(5, 2048)
     N = o.shape[0]
 
-    monkeypatch.setenv("CURRY_SPH_KERNEL_MIN", "999999")
-    i_d, p_d, _ = make_pallas_intersectors(tris, sph, view_origin=np.zeros(3))
-    monkeypatch.setenv("CURRY_SPH_KERNEL_MIN", "1")
-    i_k, p_k, _ = make_pallas_intersectors(tris, sph, view_origin=np.zeros(3))
+    i_d, p_d, _ = _intersectors(monkeypatch, tris, sph, 999999)
+    i_k, p_k, _ = _intersectors(monkeypatch, tris, sph, 1)
 
     hd, hk = i_d(o, d, t_max), i_k(o, d, t_max)
     td, tk = np.asarray(hd.t), np.asarray(hk.t)
@@ -147,10 +147,8 @@ def test_sphere_kernel_with_tris_mixed(monkeypatch):
     )
     o, d, t_max = _rays(9, 1024)
 
-    monkeypatch.setenv("CURRY_SPH_KERNEL_MIN", "999999")
-    i_d, _, _ = make_pallas_intersectors(tris, sph, view_origin=np.zeros(3))
-    monkeypatch.setenv("CURRY_SPH_KERNEL_MIN", "1")
-    i_k, _, _ = make_pallas_intersectors(tris, sph, view_origin=np.zeros(3))
+    i_d, _, _ = _intersectors(monkeypatch, tris, sph, 999999)
+    i_k, _, _ = _intersectors(monkeypatch, tris, sph, 1)
     hd, hk = i_d(o, d, t_max), i_k(o, d, t_max)
     td_, tk_ = np.asarray(hd.t), np.asarray(hk.t)
     np.testing.assert_array_equal(td_ < 1e30, tk_ < 1e30)
@@ -160,7 +158,7 @@ def test_sphere_kernel_with_tris_mixed(monkeypatch):
 
 
 def test_sphere_field_scene_end_to_end(tmp_path):
-    """A generated 200-sphere scene (above the CURRY_SPH_KERNEL_MIN=129
+    """A generated 200-sphere scene (above the SPH_KERNEL_MIN=129
     threshold) rendered through the full pipeline: the pallas intersector
     (sphere cluster kernel engaged) must match the brute oracle."""
     from curry_pbrt_tpu.render import render_scene

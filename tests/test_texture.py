@@ -41,7 +41,7 @@ WorldEnd
 class TestTextureScoping:
     """Reference scopes texture maps per attribute block (scene.rs:51-56):
     materials bind the texture definition visible in THEIR scope at compile
-    time, not the last one globally (VERDICT r2 item 5)."""
+    time, not the last one globally."""
 
     @staticmethod
     def _write_tex(path, value_u8):
@@ -103,7 +103,7 @@ WorldEnd
 
     def test_mix_with_textured_amount(self, tmp_path):
         """`mix` whose amount is a texture must resolve and render
-        (previously KeyError'd at trace time — VERDICT r2 item 5)."""
+        (it once raised KeyError at trace time)."""
         self._write_tex(tmp_path / "amt.png", 128)
         text = """
 Film "image" "integer xresolution" [8] "integer yresolution" [8]

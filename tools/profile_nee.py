@@ -1,13 +1,15 @@
 #!/usr/bin/env python
 """Bisect uniform_sample_one_light's 19ms/rep on the bench scene."""
 
-import os, sys, time
+import sys, time
 from pathlib import Path
 
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/tmp/jax_cache_tpu")
-os.environ.setdefault("JAX_PERSISTENT_CACHE_MIN_COMPILE_TIME_SECS", "1")
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
+
+from curry_pbrt_tpu.utils.cache import enable_compile_cache  # noqa: E402
+
+enable_compile_cache()
 
 import numpy as np
 import jax

@@ -5,7 +5,7 @@
 Runs the same fixed workload on meshes of 1/2/4/… devices and reports
 per-size wall + rays/s + efficiency. Two regimes:
 
-  * real chips (TPU): efficiency_N = rays_s_N / (N · rays_s_1) — the true
+  * real GPUs: efficiency_N = rays_s_N / (N · rays_s_1) — the true
     scaling number for BENCH records;
   * virtual host devices (CPU, --xla_force_host_platform_device_count):
     all "devices" share the same cores, so throughput can't scale; the
